@@ -1,0 +1,36 @@
+"""dump1090-tpu on PyTorch and CUDA: the Mode S / ADS-B file decode with the
+demodulator and the sequential candidate resolver on an NVIDIA card.
+
+This package is a port of `dump1090_tpu` (JAX on a TPU), which stays beside
+it as the reference.  It keeps that package's module paths and function
+names so each ported function can be found and held bit for bit against its
+counterpart.  It imports torch and numpy only: never jax, and nothing from
+`dump1090_tpu` (modules it needs from there are copied).
+
+Entry points run on CUDA unless the caller asks for the CPU (`device="cpu"`,
+`--device cpu`); with no card and no such request they raise.  The two
+kernels that the TPU package wrote in Pallas are hand-written CUDA C++ for
+Hopper (`csrc/`), built with nvcc at first use; on a CPU tensor each kernel
+wrapper runs its plain PyTorch version instead.
+"""
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The port's device policy: CUDA unless the caller names the CPU.
+
+    Raises when CUDA is asked for (explicitly or by default) and no card is
+    present: a decode never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' (CLI: "
+                "--device cpu) to decode on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
+    return dev

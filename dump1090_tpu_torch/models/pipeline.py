@@ -1,0 +1,361 @@
+"""End-to-end file decode on the device: IQ bytes -> `*<hex>;` lines, with
+the demodulator AND the sequential resolver on the card (port of the device
+half of dump1090_tpu/models/pipeline.py used by --raw/--stats).
+
+Groups of `dispatch_groups` x `batch_buffers` buffers are uploaded, and each
+group runs ops.resolve.demod_resolve_group with the ICAO cache chained on
+the device from one group to the next.  Up to `dispatch_ahead` groups are
+in flight before the oldest is fetched: a group's small outputs are copied
+into pinned host memory with non-blocking copies and one CUDA event, so the
+host formats group k while the device computes k+1..k+depth.  Exact counts
+come back with the data; a group that overflowed its shapes grows them
+(sticky x4) and is replayed, with every group behind it, from the cache
+state it started from.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+import queue
+import threading
+from dataclasses import dataclass, field
+from typing import BinaryIO, Iterator
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..constants import BLOCK_SAMPLES, BUF_SAMPLES, FULL_LEN_SAMPLES
+from ..io.raw_lines import raw_lines_from_fields
+from ..io.sources import iq_buffers
+from ..ops.resolve import (
+    clamp_packed_out,
+    demod_resolve_group,
+    interleave_packed,
+    max_candidates_cap,
+)
+from .decoder import STAT_FIELDS, DecoderConfig, DecoderStats, IcaoCache
+from .state import state_from_numpy, state_to_numpy
+
+
+@dataclass
+class PipelineConfig:
+    decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    # Preamble candidates per buffer the device stages are shaped for; a
+    # buffer with more is detected by its exact count, the group is replayed
+    # at 4x, and the session keeps the larger shape.
+    max_candidates: int = 256
+    # Buffers per batch (one emission record per batch).
+    batch_buffers: int = 1
+    # Batches per dispatch group (one device program sequence, one fetch).
+    dispatch_groups: int = 1
+    # Ingest strategy for regular files: "auto" uploads every group of a
+    # file up to PRELOAD_CAP_BYTES before the first dispatch; "off" always
+    # streams through a reader thread (one group of lookahead).
+    preload: str = "auto"
+    # Dispatch groups in flight before the oldest is fetched.  0 = auto: 3
+    # for seekable sources, 1 for streams.  Output is identical at every
+    # depth.
+    dispatch_ahead: int = 0
+
+
+class _Fetch:
+    """A group's outputs on their way to the host.
+
+    On CUDA: pinned host tensors filled by non-blocking copies, and one
+    event recorded after them; `get` waits on that event only.  On the CPU
+    the tensors are already on the host."""
+
+    def __init__(self, tensors):
+        self.event = None
+        if tensors[0].device.type == "cuda":
+            host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            tensors = host
+        self.tensors = tensors
+
+    def get(self) -> list[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [t.numpy() for t in self.tensors]
+
+
+class DemodPipeline:
+    """Streaming demodulator over reference-geometry IQ buffers, on the
+    device given by `device` (CUDA unless "cpu" is asked for)."""
+
+    # a regular file this large or smaller is uploaded whole before the
+    # first dispatch (overridable via DUMP1090_TPU_PRELOAD_BYTES); larger or
+    # unseekable sources stream through a reader thread instead
+    PRELOAD_CAP_BYTES = 1536 << 20
+
+    def __init__(self, cfg: PipelineConfig | None = None, clock=None,
+                 device: str | torch.device | None = None):
+        self.cfg = cfg or PipelineConfig()
+        self.device = resolve_device(device)
+        # working shapes; sticky growth lives on the INSTANCE so a shared
+        # PipelineConfig is not mutated
+        self._mc = self.cfg.max_candidates
+        self._mos = None  # emitted short-frame rows per batch
+        self._mol = None  # emitted long-frame rows per batch
+        self.stats = DecoderStats()
+        self.samples_in = 0      # new samples demodulated (throughput meter)
+        self.cache = IcaoCache(clock=clock)
+
+    def load_state(self, state) -> None:
+        """Adopt a models.state.DecodeState: its ICAO cache and counters."""
+        self.cache.addr[:], self.cache.ts[:], counts = state_to_numpy(state)
+        for name, v in zip(STAT_FIELDS, counts.tolist()):
+            setattr(self.stats, name, v)
+
+    def state(self):
+        """The pipeline's ICAO cache and counters as a DecodeState."""
+        return state_from_numpy(self.cache.addr, self.cache.ts, self.stats, self.device)
+
+    def stream_raw_device(self, stream: BinaryIO) -> Iterator[bytes]:
+        """Yield the `*<hex>;\\n` bytes of each batch, in stream order, with
+        both the demodulation and the sequential resolve on the device; the
+        host only re-interleaves the packed short/long frame rows and
+        formats hex."""
+        for count, count_long, shorts, longs in self._device_batches(stream):
+            msg, bits = interleave_packed(count, count_long, shorts, longs)
+            yield raw_lines_from_fields(msg, bits, np.ones(msg.shape[0], dtype=bool))
+
+    def _device_batches(self, stream: BinaryIO):
+        """Dispatch GROUPS of batches chained through the device-resident
+        ICAO cache, fetch each group's emissions in one transfer, detect
+        overflow by exact counts and replay from the pre-group state with
+        sticky shape growth.  Yields (count, count_long, shorts, longs) per
+        batch (see ops.resolve.interleave_packed).  The device cache is
+        synced back to the host cache at the end; stats accumulate into
+        self.stats.
+
+        Clock granularity: `now` is sampled once per dispatch group, like
+        the JAX package's device path."""
+        nb = max(self.cfg.batch_buffers, 1)
+        ng = max(self.cfg.dispatch_groups, 1)
+        mc_cap = max_candidates_cap(nb * ng)
+        if self._mos is None:
+            # sized so dense real air fits without a first-group overflow
+            # retry; quiet air shrinks via adapt_down
+            self._mos, self._mol = clamp_packed_out(
+                max(2048, nb * self._mc // 4), max(2048, nb * self._mc // 3)
+            )
+        dcfg = self.cfg.decoder
+        dev = self.device
+        ca = torch.as_tensor(self.cache.addr.astype(np.int64).astype(np.int32), device=dev)
+        ct = torch.as_tensor(np.clip(self.cache.ts, 0, 2**31 - 1).astype(np.int32), device=dev)
+
+        def dispatch(xg, ca, ct):
+            out = demod_resolve_group(
+                xg, ca, ct, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
+                scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
+                max_candidates=self._mc, max_out_short=self._mos,
+                max_out_long=self._mol,
+            )
+            # start the fetch now: it runs as soon as the group finishes,
+            # while the next groups compute; the cache stays on the device
+            return _Fetch(out[:6]), out[6], out[7]
+
+        # density adaptation: consecutive groups whose peaks sit far below
+        # the shapes shrink them (quiet air stops paying dense-shaped cost);
+        # any overflow grows them back immediately
+        quiet_groups = 0
+
+        def adapt_down(n_h, peak_short, peak_long):
+            nonlocal quiet_groups
+            if (int(n_h.max(initial=0)) * 8 <= self._mc
+                    and peak_short * 8 <= self._mos
+                    and peak_long * 8 <= self._mol):
+                quiet_groups += 1
+            else:
+                quiet_groups = 0
+            if quiet_groups >= 3:
+                quiet_groups = 0
+                self._mc = max(64, self._mc // 4)
+                self._mos = max(2048, self._mos // 4)
+                self._mol = max(2048, self._mol // 4)
+
+        def shapes_now():
+            return (self._mc, self._mos, self._mol)
+
+        def finish(work):
+            """Fetch one group; returns (per-batch payloads, replayed
+            cache state or None)."""
+            xg, state_before, fetch, _, _, disp = work
+            # validate against the shapes this group was DISPATCHED with —
+            # adapt_down may have shrunk them while it was in flight, and a
+            # group that fit its own allocation is never replayed
+            mc_d, mos_d, mol_d = disp
+            redo = None
+            while True:
+                n_h, count_h, clong_h, shorts_h, longs_h, stats_h = fetch.get()
+                n_peak = int(n_h.max(initial=0))
+                cs_peak = int((count_h - clong_h).max(initial=0))
+                cl_peak = int(clong_h.max(initial=0))
+                if n_peak <= mc_d and cs_peak <= mos_d and cl_peak <= mol_d:
+                    break
+                # grow the overflowing shape(s) and replay from the
+                # pre-group state (exact counts: loud, never silent)
+                while self._mc < n_peak:
+                    self._mc *= 4
+                if self._mc > mc_cap:
+                    if n_peak > mc_cap:
+                        raise RuntimeError(
+                            f"a buffer reported {n_peak} preamble candidates "
+                            f"but a group of {nb * ng} buffers may hold at "
+                            f"most {mc_cap} per buffer on the device — lower "
+                            f"--tpu-batch"
+                        )
+                    self._mc = mc_cap
+                while self._mos < cs_peak:
+                    self._mos *= 4
+                while self._mol < cl_peak:
+                    self._mol *= 4
+                # 16-bit rank field: keep mos+mol under the wire format's
+                # per-batch emission cap (raises if the peaks cannot fit)
+                self._mos, self._mol = clamp_packed_out(
+                    self._mos, self._mol, cs_peak, cl_peak
+                )
+                fetch, ca2, ct2 = dispatch(xg, *state_before)
+                mc_d, mos_d, mol_d = shapes_now()
+                redo = (ca2, ct2)
+            adapt_down(n_h, cs_peak, cl_peak)
+            for name, d in zip(STAT_FIELDS, stats_h.sum(axis=0).tolist()):
+                setattr(self.stats, name, getattr(self.stats, name) + d)
+            payloads = [
+                (int(count_h[g]), int(clong_h[g]), shorts_h[g], longs_h[g])
+                for g in range(xg.shape[0])
+            ]
+            return payloads, redo
+
+        # dispatch-ahead depth (PipelineConfig.dispatch_ahead; 0 = auto)
+        depth = self.cfg.dispatch_ahead
+        if depth <= 0:
+            try:
+                seekable = stream.seekable()
+            except (OSError, AttributeError, ValueError):
+                seekable = False
+            depth = 3 if seekable else 1
+
+        it = iq_buffers(stream)
+        # entries: (xg, state_before, fetch, ca_after, ct_after, shapes)
+        pending: collections.deque = collections.deque()
+        groups = self._ingest_groups(stream, it, ng, nb)
+        # the cache state after the last group whose results were delivered
+        delivered = (ca, ct)
+
+        def enqueue(xg, ca, ct):
+            fetch, ca2, ct2 = dispatch(xg, ca, ct)
+            pending.append((xg, (ca, ct), fetch, ca2, ct2, shapes_now()))
+            return ca2, ct2
+
+        try:
+            while True:
+                item = next(groups, None)
+                if item is not None:
+                    xg, n_bufs = item
+                    self.samples_in += n_bufs * BLOCK_SAMPLES
+                    ca, ct = enqueue(xg, ca, ct)
+                # keep `depth` groups in flight while the stream lives;
+                # drain everything at EOF
+                while len(pending) > (depth if item is not None else 0):
+                    work = pending.popleft()
+                    payloads, redo = finish(work)
+                    delivered = redo or (work[3], work[4])
+                    yield from payloads
+                    if redo:  # shapes grew: replay EVERY in-flight group
+                        # from the replayed state, in order
+                        ca, ct = redo
+                        requeue = [w[0] for w in pending]
+                        pending.clear()
+                        for xg2 in requeue:
+                            ca, ct = enqueue(xg2, ca, ct)
+                if item is None:
+                    return
+        finally:
+            groups.close()
+            # device cache -> host cache, from the last group whose results
+            # were delivered (an early close leaves later groups unvalidated)
+            self.cache.addr[:] = delivered[0].cpu().numpy().astype(np.uint32)
+            self.cache.ts[:] = delivered[1].cpu().numpy().astype(np.int64)
+
+    def _ingest_groups(self, stream, it, ng: int, nb: int):
+        """Generator of device-resident dispatch groups (xg uint8 (g, nb,
+        nbytes), n_bufs): the buffers framed by `it`, uploaded.  A group's
+        trailing batches that hold no buffer are not built: they would be
+        all no-signal (127) and carry zero candidates.
+
+        Two strategies: preload (regular files up to PRELOAD_CAP_BYTES)
+        frames and uploads every group before the first dispatch; streaming
+        (stdin, large files, or preload "off") frames and uploads group g+1 on a reader thread while the main
+        thread dispatches and fetches g."""
+        dev = self.device
+
+        def make_group(bufs):
+            g_real = -(-len(bufs) // nb)
+            xg = np.full((g_real, nb, bufs[0].shape[0]), 127, dtype=np.uint8)
+            xg.reshape(g_real * nb, -1)[: len(bufs)] = np.stack(bufs)
+            return torch.from_numpy(xg).to(dev), len(bufs)
+
+        def next_bufs():
+            return list(itertools.islice(it, ng * nb))
+
+        preload = False
+        if self.cfg.preload != "off":
+            try:
+                cap = int(os.environ.get("DUMP1090_TPU_PRELOAD_BYTES", self.PRELOAD_CAP_BYTES))
+                preload = os.fstat(stream.fileno()).st_size <= cap and stream.seekable()
+            except (OSError, AttributeError, ValueError):
+                preload = False
+
+        if preload:
+            staged = []
+            while bufs := next_bufs():
+                staged.append(make_group(bufs))
+            yield from staged
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=1)
+        stop = threading.Event()
+
+        def put(item) -> None:
+            # retry until the consumer takes it or tears the generator down:
+            # a dropped sentinel or error would leave the consumer blocked
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return
+                except queue.Full:
+                    continue
+
+        def reader():
+            try:
+                while not stop.is_set():
+                    bufs = next_bufs()
+                    put(make_group(bufs) if bufs else None)
+                    if not bufs:
+                        return
+            except BaseException as e:  # surfaced on the consumer side
+                put(e)
+
+        t = threading.Thread(target=reader, name="iq-upload", daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join(timeout=5.0)

@@ -1,0 +1,699 @@
+"""On-device candidate resolver: demodulation, the order-independent decode
+precompute, the sequential skip/ICAO-cache walk and the packed emission of
+one dispatch group (port of dump1090_tpu/ops/resolve.py, packed raw path).
+
+Behavioral contract: the candidate-resolution half of detectModeS +
+decodeModesMessage (dump1090.c:1563-1793, 1091-1209).
+
+Everything order-INDEPENDENT is vectorized over all candidates of the group
+before the sequential part:
+
+  * CRC-24 syndromes of both demod passes as one GF(2) product (float32
+    operands: 0/1 values with sums <= 88 are exact, even under TF32);
+  * syndrome-table error correction through a dense 2^24-entry table (the
+    glibc bsearch probe choice among duplicate syndromes, dump1090.c:862-865,
+    is baked in when the table is built) — one gather per candidate;
+  * the brute-force AP address (dump1090.c:942-983) is the syndrome itself;
+  * the whole CRC-acceptance policy collapses to two bits per pass: "CRC ok
+    if the ICAO cache hits" and "CRC ok if it does not".
+
+What remains is sequential: the skip-until position (reset per buffer,
+advanced past good messages, dump1090.c:1769-1771) and the 1024-entry ICAO
+cache whose hits gate AP/IID acceptance.  That walk is the CUDA kernel
+csrc/resolve_words.cu (port of the Pallas kernel _resolve_kernel_factory);
+resolve_words_plain is its plain version.  Stats and the emission are
+derived from the decision words afterwards, vectorized.
+
+Integer semantics: the JAX package relies on int32 wraparound (hash
+multiplies) and logical right shifts; torch's >> on int32 is arithmetic, so
+those steps are done in int64 with explicit 32-bit masks.
+
+No host sync happens between upload and the fetch of a group's results: no
+op here has a data-dependent output shape, and the kernels read the
+per-buffer counts on the device.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..constants import (
+    DF11_IID_MAX_SYNDROME,
+    ICAO_CACHE_LEN,
+    ICAO_CACHE_TTL,
+    LONG_MSG_BITS,
+    PREAMBLE_US,
+    SCAN_POSITIONS,
+    SHORT_MSG_BITS,
+)
+from . import _cuda
+from . import crc as crc_ops
+from .demod import (
+    candidate_passes_window,
+    first_k_positions,
+    front_candidates,
+    gather_candidate_windows,
+)
+from .magnitude import magnitude_from_iq
+
+# ---- packed input word layout (per candidate) --------------------------------
+# pf:  pos (bits 0..16) | valid<<17 | newbuf<<18 | gate1<<19
+# w1/w2 (per pass): addr (bits 0..23) | attempt<<24 | crcok_seen<<25 |
+#                   crcok_noseen<<26 | addable<<27 | long<<28
+PF_POS_MASK = (1 << 17) - 1
+PF_VALID = 1 << 17
+PF_NEWBUF = 1 << 18
+PF_GATE1 = 1 << 19
+W_ADDR_MASK = (1 << 24) - 1
+W_ATTEMPT = 1 << 24
+W_CRCOK_SEEN = 1 << 25
+W_CRCOK_NOSEEN = 1 << 26
+W_ADDABLE = 1 << 27
+W_LONG = 1 << 28
+
+# ---- packed output word layout (per candidate) -------------------------------
+R_RUN = 1
+R_ATT1 = 2
+R_CRCOK1 = 4
+R_GOOD1 = 8
+R_RUN2 = 16
+R_ATT2 = 32
+R_CRCOK2 = 64
+R_GOOD2 = 128
+
+# meta word layout of emitted messages (unpacked emission; not on this path)
+META_CRCOK = 1
+META_PHASE = 2
+META_LONG = 4
+META_PASS = 8
+META_ERRBIT_SHIFT = 4
+META_ERRBIT_MASK = 0xFF
+META_POS_SHIFT = 12
+
+# short / long frame skip distances: j + (8 us + msgbits) * 2 + 1
+# (dump1090.c:1769-1771)
+SKIP_SHORT = (PREAMBLE_US + SHORT_MSG_BITS) * 2 + 1  # 129
+SKIP_EXTRA_LONG = (LONG_MSG_BITS - SHORT_MSG_BITS) * 2  # +112 for long frames
+
+RESOLVE_CHUNK = 2048  # the JAX package's kernel chunk; mc rounds to it above
+
+# packed short rows carry their batch emission rank in TWO uint8s, so one
+# batch's emission count must fit 16 bits or the host re-interleave would
+# read aliased ranks
+PACKED_RANK_LIMIT = 1 << 16
+
+# The port's own bound on candidate slots per dispatch group (buffers x
+# max_candidates).  The pass and precompute intermediates of one group cost
+# a few KB per slot on the device, so 2^21 slots keep a group within ~16 GB;
+# sticky growth is clamped here and a buffer that cannot fit raises
+# (DESIGN.md, "Bounded allocations": never silent, never stuck).
+MAX_GROUP_SLOTS = 1 << 21
+
+
+def clamp_packed_out(mos: int, mol: int, short_need: int = 0,
+                     long_need: int = 0) -> tuple[int, int]:
+    """Shrink packed emission allocations until mos + mol fits the 16-bit
+    rank field, never below the exact per-kind needs (the overflow-retry
+    counts).  Raises if the needs themselves exceed the wire format — one
+    batch emitting >65536 messages needs fewer buffers per batch, not a
+    wider allocation."""
+    if short_need + long_need > PACKED_RANK_LIMIT:
+        raise ValueError(
+            f"one batch emitted {short_need} short + {long_need} long "
+            f"messages; the packed wire format's 16-bit emission rank caps "
+            f"a batch at {PACKED_RANK_LIMIT} — reduce batch_buffers per "
+            f"dispatch"
+        )
+    # never shave an allocation to zero: the pipeline's sticky growth
+    # multiplies by 4, and 0*4 == 0 would loop forever
+    short_floor = max(short_need, 64)
+    long_floor = max(long_need, 64)
+    if short_floor + long_floor > PACKED_RANK_LIMIT:
+        raise ValueError(
+            f"packed emission needs {short_need}+{long_need} cannot fit the "
+            f"{PACKED_RANK_LIMIT}-message rank field with nonzero "
+            f"allocations for both kinds — reduce batch_buffers per dispatch"
+        )
+    over = mos + mol - PACKED_RANK_LIMIT
+    if over > 0:
+        d = min(over, mol - long_floor)
+        mol -= d
+        over -= d
+    if over > 0:
+        mos -= min(over, mos - short_floor)
+    return mos, mol
+
+
+def normalize_max_candidates(mc: int) -> int:
+    """Round mc up to a multiple of RESOLVE_CHUNK above RESOLVE_CHUNK — the
+    JAX package's kernel geometry, kept so both packages grow through the
+    same candidate widths."""
+    if mc > RESOLVE_CHUNK and mc % RESOLVE_CHUNK:
+        mc += RESOLVE_CHUNK - (mc % RESOLVE_CHUNK)
+    return mc
+
+
+def max_candidates_cap(n_buffers: int) -> int:
+    """Largest normalized max_candidates a group of n_buffers may grow to
+    under MAX_GROUP_SLOTS, and never more than a buffer can hold: at most
+    SCAN_POSITIONS // 2 + 1 candidates, since the predicate forbids adjacent
+    hits."""
+    cap = min(MAX_GROUP_SLOTS // max(n_buffers, 1), SCAN_POSITIONS // 2 + 1)
+    if cap > RESOLVE_CHUNK:
+        cap -= cap % RESOLVE_CHUNK
+    return cap
+
+
+# ---- device-resident constant tables (built once per process and device) ----
+
+
+@functools.cache
+def _bit_matrices(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(88, 24) long-frame and (32, 24) short-frame GF(2) CRC contractions,
+    float32 on `device`."""
+    m = crc_ops.checksum_bit_matrix()
+    return (
+        torch.as_tensor(m[: LONG_MSG_BITS - 24], dtype=torch.float32, device=device),
+        torch.as_tensor(m[SHORT_MSG_BITS : LONG_MSG_BITS - 24], dtype=torch.float32, device=device),
+    )
+
+
+@functools.cache
+def _dense_fix_table_np() -> np.ndarray:
+    """Direct-mapped 2^24-entry syndrome -> error-table-entry lookup.
+
+    Duplicate syndromes resolve to the exact entry glibc's bsearch lands on
+    (dump1090.c:862-865).  Packing: nbits << 14 | pos0 << 7 | (pos1 & 0x7F);
+    0 = no entry.  pos0 is in [5, 112) and pos1 in [6, 112) or -1 (-1 packs
+    to 0x7F, disambiguated by nbits)."""
+    syn, nbits, pos0, pos1 = crc_ops.bit_error_table()
+    t = np.zeros(1 << 24, dtype=np.uint16)
+    for s in np.unique(syn):
+        idx = crc_ops._glibc_bsearch(syn, int(s))
+        t[s] = (int(nbits[idx]) << 14) | (int(pos0[idx]) << 7) | (int(pos1[idx]) & 0x7F)
+    return t
+
+
+@functools.cache
+def _dense_fix_table(device: torch.device) -> torch.Tensor:
+    """The dense fix table as int32 on `device` (67 MB): uint16 cannot be
+    indexed in arithmetic there."""
+    return torch.as_tensor(_dense_fix_table_np().astype(np.int32), device=device)
+
+
+@functools.cache
+def _iota(n: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+# ---- order-independent precompute ---------------------------------------------
+
+
+def _unpack_bits(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """(N, >=nbytes) int32 bytes -> (N, nbytes*8) {0,1} float32, MSB first."""
+    shifts = 7 - _iota(8, x.device)
+    b = (x[:, :nbytes, None] >> shifts) & 1
+    return b.reshape(x.shape[0], nbytes * 8).to(torch.float32)
+
+
+def device_syndromes(msgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """24-bit syndromes of (N, 14) uint8 frames for both frame lengths.
+
+    Returns (syn_long, syn_short) int32[N].  The GF(2) product runs as a
+    float32 matmul: 0/1 operands and sums <= 88 are exact."""
+    m_long, m_short = _bit_matrices(msgs.device)
+    x = msgs.to(torch.int32)
+    bits = _unpack_bits(x, 11)  # 88 data bits of a long frame
+    w = 1 << (23 - _iota(24, msgs.device))
+
+    def gf2(b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        par = torch.matmul(b, m).to(torch.int32) & 1
+        return (par * w).sum(dim=1, dtype=torch.int32)
+
+    def rem(b0: int, b1: int, b2: int) -> torch.Tensor:
+        return (x[:, b0] << 16) | (x[:, b1] << 8) | x[:, b2]
+
+    return gf2(bits, m_long) ^ rem(11, 12, 13), gf2(bits[:, :32], m_short) ^ rem(4, 5, 6)
+
+
+def fix_candidates(msgs, syn, msgbits, want_fix, maxfix):
+    """Vectorized fixBitErrors (dump1090.c:854-894) over (N, 14) frames.
+
+    Returns (msg_fixed uint8, errorbit int32 (-1 when no fix), nbits applied
+    int32 0/1/2)."""
+    v = _dense_fix_table(msgs.device)[(syn & 0xFFFFFF).to(torch.int64)]
+    k = v >> 14
+    hit = k > 0
+    offset = LONG_MSG_BITS - msgbits
+    rel0 = ((v >> 7) & 0x7F) - offset
+    rel1 = (v & 0x7F) - offset
+    ok0 = (rel0 >= 0) & (rel0 < msgbits)
+    ok1 = (k < 2) | ((rel1 >= 0) & (rel1 < msgbits))
+    apply = want_fix & hit & (k <= maxfix) & ok0 & ok1
+
+    byte_idx = _iota(14, msgs.device)
+
+    def flip(rel: torch.Tensor, enable: torch.Tensor) -> torch.Tensor:
+        onehot = ((rel[:, None] >> 3) == byte_idx) & enable[:, None]
+        bit = 1 << (7 - (rel & 7))
+        return torch.where(onehot, bit[:, None], 0)
+
+    flips = flip(rel0, apply) ^ flip(rel1, apply & (k == 2))
+    msg_fixed = (msgs.to(torch.int32) ^ flips).to(torch.uint8)
+    errorbit = torch.where(apply, rel0, -1)
+    return msg_fixed, errorbit, torch.where(apply, k, 0)
+
+
+def icao_hash(a: torch.Tensor) -> torch.Tensor:
+    """ICAOCacheHashAddress (dump1090.c:898-905): uint32 arithmetic done in
+    int64 with 32-bit masks after each multiply.  Returns int32 slots."""
+    h = a.to(torch.int64) & 0xFFFFFFFF
+    h = (h >> 16) ^ h
+    h = (h * 0x45D9F3B) & 0xFFFFFFFF
+    h = (h >> 16) ^ h
+    h = (h * 0x45D9F3B) & 0xFFFFFFFF
+    h = (h >> 16) ^ h
+    return (h & (ICAO_CACHE_LEN - 1)).to(torch.int32)
+
+
+def _hash_words(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Both passes' ICAO-cache hash slots packed per candidate (pass1 bits
+    0..9, pass2 bits 10..19), computed before the sequential walk."""
+    return icao_hash(w1 & W_ADDR_MASK) | (icao_hash(w2 & W_ADDR_MASK) << 10)
+
+
+def _pass_precompute(msgs, errors, gate, aggressive: bool, fix_errors: bool):
+    """Order-independent decode work for one demod pass of all candidates.
+
+    Returns (packed word int32, msg_fixed uint8, aux dict of flags for
+    stats).  The word carries the FINAL per-candidate CRC verdict
+    conditioned on the only sequential unknown (ICAO-cache hit or miss)
+    (dump1090.c:1119-1209)."""
+    x = msgs.to(torch.int32)
+    msgtype = x[:, 0] >> 3
+    is_long = (msgtype >= 16) & (msgtype <= 21)  # LONG_MSG_DFS
+    msgbits = torch.where(is_long, LONG_MSG_BITS, SHORT_MSG_BITS).to(torch.int32)
+    syn_long, syn_short = device_syndromes(msgs)
+    syn = torch.where(is_long, syn_long, syn_short)
+    crcok_clean = syn == 0
+
+    is_std = (msgtype == 11) | (msgtype == 17) | (msgtype == 18)
+    is_ap = (
+        (msgtype == 0) | (msgtype == 4) | (msgtype == 5) | (msgtype == 16)
+        | (msgtype == 20) | (msgtype == 21) | (msgtype == 24)
+    )
+    is11 = msgtype == 11
+
+    maxfix = 2 if aggressive else 1
+    want_fix = ~crcok_clean & is_std if fix_errors else torch.zeros_like(is_std)
+    msg_fixed, errorbit, nfix = fix_candidates(msgs, syn, msgbits, want_fix, maxfix)
+    crcok_fix = crcok_clean | (nfix > 0)
+
+    xf = msg_fixed.to(torch.int32)
+    addr_self = (xf[:, 1] << 16) | (xf[:, 2] << 8) | xf[:, 3]
+    # brute-force AP address == the syndrome (AP = CRC xor addr); computed on
+    # the unfixed bytes, but AP frame types are never fixed, so syn is it
+    addr = torch.where(is_std, addr_self, syn)
+
+    def b(flag: torch.Tensor, bit: int) -> torch.Tensor:
+        return flag.to(torch.int32) * bit
+
+    # errors is 0 or 1, so (errors == 0) | (aggressive & (errors < 3)) is:
+    attempt = gate & ((errors < 3) if aggressive else (errors == 0))
+    clean = errorbit == -1
+    iid_ok = ~crcok_fix & is11 & (syn < DF11_IID_MAX_SYNDROME)
+    # reference acceptance (decodeModesMessage): std frames pass on clean or
+    # fixed CRC, or on a DF11-IID cache hit; AP frames pass only on a cache
+    # hit of the brute-forced address
+    crcok_seen = torch.where(is_std, crcok_fix | iid_ok, is_ap)
+    crcok_noseen = is_std & crcok_fix
+    word = (
+        addr
+        | b(attempt, W_ATTEMPT)
+        | b(crcok_seen, W_CRCOK_SEEN)
+        | b(crcok_noseen, W_CRCOK_NOSEEN)
+        | b(is_std & crcok_fix & clean, W_ADDABLE)
+        | b(is_long, W_LONG)
+    )
+    aux = dict(
+        errors0=errors == 0,
+        fixed_one=nfix == 1,
+        fixed_two=nfix == 2,
+        clean=clean,
+        long=is_long,
+        errorbit=errorbit,
+    )
+    return word, msg_fixed, aux
+
+
+# ---- the sequential walk --------------------------------------------------------
+
+
+def _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc):
+    streams = (pf, w1, w2, h12, nbuf, cache_addr, cache_ts)
+    for t in streams:
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError("resolve_words takes contiguous 1-D int32 tensors")
+        if t.device != pf.device:
+            raise ValueError("resolve_words inputs must share one device")
+    n = pf.shape[0]
+    if any(t.shape[0] != n for t in (w1, w2, h12)) or n != nbuf.shape[0] * mc:
+        raise ValueError(
+            f"stream lengths {[t.shape[0] for t in (pf, w1, w2, h12)]} must "
+            f"all equal n_buffers x mc = {nbuf.shape[0]} x {mc}"
+        )
+    if cache_addr.shape[0] != ICAO_CACHE_LEN or cache_ts.shape[0] != ICAO_CACHE_LEN:
+        raise ValueError(f"the ICAO cache has {ICAO_CACHE_LEN} slots")
+
+
+def resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int):
+    """Plain version of the sequential walk, on Python ints.
+
+    pf/w1/w2/h12: int32[NBUF * mc] (whole buffers, fixed-width rows); nbuf:
+    int32[NBUF] valid-candidate counts (the first nbuf[b] slots of buffer b
+    are walked).  Returns (words, cache_addr', cache_ts') on pf's device,
+    with words 0 on every slot not walked.  _step_semantics of the JAX
+    package, step by step."""
+    _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc)
+    pf_l, w1_l, w2_l, h_l, nb_l, ca, ct = (
+        t.tolist() for t in (pf, w1, w2, h12, nbuf, cache_addr, cache_ts)
+    )
+    words = [0] * len(pf_l)
+
+    def seen(h: int, addr: int) -> bool:
+        age = ((now - ct[h] + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)  # int32 wrap
+        return ca[h] == addr and ca[h] != 0 and age <= ICAO_CACHE_TTL
+
+    skip = 0
+    for b, cnt in enumerate(nb_l):
+        base = b * mc
+        for i in range(base, base + min(max(cnt, 0), mc)):
+            p, v1, v2, hh = pf_l[i], w1_l[i], w2_l[i], h_l[i]
+            pos = p & PF_POS_MASK
+            if p & PF_NEWBUF:
+                skip = 0
+            run = bool(p & PF_VALID) and pos >= skip
+
+            h1, a1 = hh & 0x3FF, v1 & W_ADDR_MASK
+            att1 = run and bool(v1 & W_ATTEMPT)
+            crcok1 = bool(v1 & (W_CRCOK_SEEN if seen(h1, a1) else W_CRCOK_NOSEEN))
+            good1 = att1 and crcok1
+            add1 = att1 and bool(v1 & W_ADDABLE)
+            if good1:
+                skip = pos + SKIP_SHORT + (SKIP_EXTRA_LONG if v1 & W_LONG else 0)
+
+            run2 = run and bool(p & PF_GATE1) and not good1
+            h2, a2 = (hh >> 10) & 0x3FF, v2 & W_ADDR_MASK
+            att2 = run2 and bool(v2 & W_ATTEMPT)
+            crcok2 = bool(v2 & (W_CRCOK_SEEN if seen(h2, a2) else W_CRCOK_NOSEEN))
+            good2 = att2 and crcok2
+            add2 = att2 and bool(v2 & W_ADDABLE)
+            if good2:
+                skip = pos + SKIP_SHORT + (SKIP_EXTRA_LONG if v2 & W_LONG else 0)
+
+            # at most one cache write per candidate, after both lookups
+            if add1:
+                ca[h1], ct[h1] = a1, now
+            elif add2:
+                ca[h2], ct[h2] = a2, now
+            words[i] = (
+                run * R_RUN | att1 * R_ATT1 | crcok1 * R_CRCOK1 | good1 * R_GOOD1
+                | run2 * R_RUN2 | att2 * R_ATT2 | crcok2 * R_CRCOK2
+                | good2 * R_GOOD2
+            )
+
+    def out(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=pf.device)
+
+    return out(words), out(ca), out(ct)
+
+
+def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int):
+    """The sequential walk: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors.  Same contract as resolve_words_plain; the input
+    cache tensors are never written."""
+    _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc)
+    if pf.device.type == "cpu":
+        return resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now, mc)
+    if pf.device.type != "cuda":
+        raise ValueError(f"resolve_words runs on cuda or cpu, not {pf.device}")
+    words = torch.empty_like(pf)
+    ca = torch.empty_like(cache_addr)
+    ct = torch.empty_like(cache_ts)
+    lib = _cuda.library()
+    with torch.cuda.device(pf.device):  # the launch goes to the current device
+        err = lib.resolve_words(
+            pf.data_ptr(), w1.data_ptr(), w2.data_ptr(), h12.data_ptr(),
+            nbuf.data_ptr(), cache_addr.data_ptr(), cache_ts.data_ptr(),
+            words.data_ptr(), ca.data_ptr(), ct.data_ptr(),
+            nbuf.shape[0], mc, int(now), _cuda.current_stream(pf.device),
+        )
+    _cuda.launches["resolve_words"] += 1
+    _cuda.check(err, "resolve_words")
+    return words, ca, ct
+
+
+# ---- stats and packed emission ----------------------------------------------------
+
+
+def _first_k(mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Indices of the first k set slots of each row of a bool (G, L) mask in
+    scan order, padded with L-1 (the row the JAX package's clamped top_k
+    selects there), plus their validity."""
+    length = mask.shape[1]
+    sel = first_k_positions(mask, k, length - 1)
+    ok = _iota(k, mask.device) < mask.sum(dim=1, dtype=torch.int32)[:, None]
+    return sel, ok
+
+
+def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
+                        max_out_short: int, max_out_long: int):
+    """Stats + packed emission of every batch of a group, vectorized over
+    the batch axis: words/pos (G, P), msg*f (G, P, 14), aux* (G, P).
+
+    dump1090.c:1737-1753 detect-path counters incl. the single-bit double
+    count, dump1090.c:1122-1126 decode path.  Returns (count (G,),
+    count_long (G,), shorts uint8 (G, mos, 9), longs uint8 (G, mol, 14),
+    stats int32 (G, 8))."""
+    g_n, n_slots = words.shape
+
+    def bit(b: int) -> torch.Tensor:
+        return (words & b) != 0
+
+    att1, crcok1 = bit(R_ATT1), bit(R_CRCOK1)
+    run2, att2 = bit(R_RUN2), bit(R_ATT2)
+    crcok2 = bit(R_CRCOK2)
+
+    def s(a: torch.Tensor) -> torch.Tensor:
+        return a.sum(dim=1, dtype=torch.int32)
+
+    d1 = att1 & crcok1  # pass-1 detect stats are gated on final crcok
+    fixflag1 = d1 & ~aux1["clean"]
+    fixflag2 = att2 & ~aux2["clean"]
+    stats = torch.stack([
+        s(bit(R_RUN)),                                     # valid_preamble
+        s(run2 & (pos > 0)),                               # out_of_phase
+        s(d1 & aux1["errors0"]) + s(att2 & aux2["errors0"]),   # demodulated
+        s(d1 & aux1["clean"]) + s(att2 & crcok2 & aux2["clean"]),  # goodcrc
+        s(att2 & ~crcok2 & aux2["clean"]) + s(fixflag1) + s(fixflag2),  # badcrc
+        s(fixflag1) + s(fixflag2),                         # fixed
+        # detect path always bumps single_bit (errorbit < 112 quirk);
+        # decode path counts the true split on every decode attempt
+        s(fixflag1) + s(fixflag2)
+        + s(att1 & aux1["fixed_one"]) + s(att2 & aux2["fixed_one"]),
+        s(att1 & aux1["fixed_two"]) + s(att2 & aux2["fixed_two"]),
+    ], dim=1)
+
+    # ---- emitted messages, first-K in scan order (crcok only: raw path) ----
+    emask = torch.stack([att1 & crcok1, att2 & crcok2], dim=2).reshape(g_n, 2 * n_slots)
+    count = s(emask)
+    long_slot = torch.stack([aux1["long"], aux2["long"]], dim=2).reshape(g_n, 2 * n_slots)
+    msgs12 = torch.stack([msg1f, msg2f], dim=2).reshape(g_n, 2 * n_slots, 14)
+
+    count_long = s(emask & long_slot)
+    ei = emask.to(torch.int32)
+    rank = torch.cumsum(ei, dim=1, dtype=torch.int32).sub_(ei)
+    sel_s, ok_s = _first_k(emask & ~long_slot, max_out_short)
+    sel_l, ok_l = _first_k(emask & long_slot, max_out_long)
+    rank_s = torch.where(ok_s, torch.gather(rank, 1, sel_s), 0)
+
+    def rows(sel: torch.Tensor, width: int) -> torch.Tensor:
+        idx = sel[..., None].expand(g_n, sel.shape[1], width)
+        return torch.gather(msgs12[..., :width], 1, idx)
+
+    shorts = torch.cat(
+        [
+            rows(sel_s, 7),
+            (rank_s & 0xFF).to(torch.uint8)[..., None],
+            ((rank_s >> 8) & 0xFF).to(torch.uint8)[..., None],
+        ],
+        dim=2,
+    )
+    return count, count_long, shorts, rows(sel_l, 14), stats
+
+
+# ---- the group: front, back, and the two together ----------------------------------
+
+
+def _mark(marks: list | None, name: str) -> None:
+    """Record a CUDA event after stage `name` when the caller collects a
+    per-stage split (marks is a list; None costs nothing)."""
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+
+def _group_front(xg: torch.Tensor, *, scan_len: int, max_candidates: int):
+    """Magnitudes + preamble predicate + position compaction for every
+    buffer of the group: xg uint8 (G, NB, nbytes) -> (m int32 (G*NB, S),
+    n int32 (G*NB,), pos int32 (G*NB, MC))."""
+    g_n, nb, nbytes = xg.shape
+    m = magnitude_from_iq(xg.reshape(g_n * nb, nbytes))
+    n, pos = front_candidates(m, scan_len, max_candidates)
+    return m, n, pos
+
+
+def _group_precompute(m, n, pos, fix_errors: bool, aggressive: bool, *,
+                      max_candidates: int, marks=None):
+    """Candidate-window gather + both demod passes + the order-independent
+    precompute, over all G*NB buffers of the group at once.  Returns the
+    sequential walk's inputs (pf, w1, w2, h12, nbuf) and what the emission
+    needs (msg1f, msg2f, aux1, aux2, flat positions)."""
+    n_bufs = n.shape[0]
+    mc = max_candidates
+    dev = m.device
+
+    w = gather_candidate_windows(m, pos)  # padding copy + K1
+    _mark(marks, "gather")
+    pos_f = pos.reshape(-1)
+    msg1, errors1, gate1, msg2, errors2, gate2 = candidate_passes_window(
+        w.reshape(n_bufs * mc, -1), pos_f
+    )
+    del w
+    _mark(marks, "passes")
+
+    w1, msg1f, aux1 = _pass_precompute(msg1, errors1, gate1, aggressive, fix_errors)
+    w2, msg2f, aux2 = _pass_precompute(msg2, errors2, gate2, aggressive, fix_errors)
+    nbuf = torch.clamp_max(n, mc)
+    slot = _iota(mc, dev)
+    valid = (slot < nbuf[:, None]).reshape(-1)
+    newbuf = (slot == 0).expand(n_bufs, mc).reshape(-1)
+    pf = (
+        torch.clamp_max(pos_f, PF_POS_MASK)
+        | valid.to(torch.int32) * PF_VALID
+        | newbuf.to(torch.int32) * PF_NEWBUF
+        | gate1.to(torch.int32) * PF_GATE1
+    )
+    h12 = _hash_words(w1, w2)
+    _mark(marks, "precompute")
+    return (pf, w1, w2, h12, nbuf), (msg1f, msg2f, aux1, aux2, pos_f)
+
+
+def _group_back(m, n, pos, cache_addr, cache_ts, now: int, fix_errors: bool,
+                aggressive: bool, *, g_n: int, max_candidates: int,
+                max_out_short: int, max_out_long: int, marks=None):
+    """_group_precompute + the single sequential walk over the group's
+    candidate stream + stats and packed emission of every batch."""
+    walk_in, (msg1f, msg2f, aux1, aux2, pos_f) = _group_precompute(
+        m, n, pos, fix_errors, aggressive, max_candidates=max_candidates,
+        marks=marks,
+    )
+    words, ca, ct = resolve_words(
+        *walk_in, cache_addr, cache_ts, now, max_candidates
+    )
+    _mark(marks, "resolve")
+
+    def by_batch(a: torch.Tensor) -> torch.Tensor:
+        return a.reshape((g_n, -1) + tuple(a.shape[1:]))
+
+    outs = _postprocess_packed(
+        by_batch(words), by_batch(msg1f), by_batch(msg2f), by_batch(pos_f),
+        {k: by_batch(v) for k, v in aux1.items()},
+        {k: by_batch(v) for k, v in aux2.items()},
+        max_out_short=max_out_short, max_out_long=max_out_long,
+    )
+    _mark(marks, "emission")
+    return (n.reshape(g_n, -1),) + outs + (ca, ct)
+
+
+def demod_resolve_group(
+    xg: torch.Tensor,
+    cache_addr: torch.Tensor,
+    cache_ts: torch.Tensor,
+    now: int,
+    fix_errors: bool,
+    aggressive: bool,
+    *,
+    scan_len: int,
+    max_candidates: int,
+    max_out_short: int,
+    max_out_long: int,
+    marks: list | None = None,
+):
+    """Device pipeline over a dispatch GROUP: xg is (G, NB, nbytes) uint8 IQ
+    on the device; every buffer is demodulated, the whole candidate stream
+    is resolved in ONE kernel walk (the ICAO cache and the per-buffer skip
+    state chain through it in stream order), and each batch's messages are
+    emitted in the packed raw/stats wire format.  Everything is enqueued
+    without a host sync.
+
+    Returns:
+      n          int32[G, NB]      exact preamble count per buffer
+      count      int32[G]          exact emitted-message count per batch
+      count_long int32[G]          how many of those are 112-bit frames
+      shorts     uint8[G, mos, 9]  7 frame bytes + emission rank (lo, hi)
+      longs      uint8[G, mol, 14] 14 frame bytes, in emission order
+      stats      int32[G, 8]       reference counter deltas (DecoderStats order)
+      cache_addr', cache_ts'       int32[1024]
+    Overflow is detected from the exact counts (n > max_candidates,
+    count-count_long > mos or count_long > mol), never silently truncated.
+
+    `marks`, when a list, collects (stage, CUDA event) pairs for a
+    per-stage timing split (CUDA only)."""
+    if scan_len > PF_POS_MASK:
+        raise ValueError(
+            f"scan_len {scan_len} exceeds the {PF_POS_MASK} packed-position "
+            f"limit of the resolver word layout"
+        )
+    if max_out_short + max_out_long > PACKED_RANK_LIMIT:
+        raise ValueError(
+            f"max_out_short + max_out_long = "
+            f"{max_out_short + max_out_long} exceeds the "
+            f"{PACKED_RANK_LIMIT}-message packed rank field; use "
+            f"clamp_packed_out on the allocations"
+        )
+    if xg.dtype != torch.uint8 or xg.dim() != 3:
+        raise TypeError(f"xg must be uint8 (G, NB, nbytes), got {xg.dtype} {tuple(xg.shape)}")
+    max_candidates = normalize_max_candidates(max_candidates)
+    _mark(marks, "start")
+    m, n, pos = _group_front(xg, scan_len=scan_len, max_candidates=max_candidates)
+    _mark(marks, "front")
+    return _group_back(
+        m, n, pos, cache_addr, cache_ts, now, bool(fix_errors), bool(aggressive),
+        g_n=xg.shape[0], max_candidates=max_candidates,
+        max_out_short=max_out_short, max_out_long=max_out_long, marks=marks,
+    )
+
+
+def interleave_packed(count, count_long, shorts, longs):
+    """Host-side reconstruction of one batch's emission stream from the
+    packed wire format: (msg uint8[count, 14] zero-padded short rows,
+    bits int[count]) in exact scan order."""
+    c = int(count)
+    cl = int(count_long)
+    cs = c - cl
+    msg = np.zeros((c, 14), dtype=np.uint8)
+    is_long = np.ones(c, dtype=bool)
+    if cs:
+        sh = np.asarray(shorts[:cs])
+        ranks = sh[:, 7].astype(np.int64) | (sh[:, 8].astype(np.int64) << 8)
+        is_long[ranks] = False
+        msg[~is_long, :7] = sh[:, :7]
+    if cl:
+        msg[is_long] = np.asarray(longs[:cl])
+    bits = np.where(is_long, 112, 56)
+    return msg, bits

@@ -1,0 +1,193 @@
+"""Synthetic Mode S IQ generation: frame -> CRC -> PPM -> 2 Msps IQ (a copy
+of dump1090_tpu/utils/synth.py).
+
+Encode known frames into uint8 IQ at a chosen amplitude / noise level /
+carrier phase, feed them through the demodulation pipeline, and assert on
+what comes back.
+
+Waveform model (Mode S downlink, 1090 MHz PPM at 1 Mbit/s, sampled 2 Msps):
+  preamble: pulses in sample slots 0, 2, 7, 9 of 16 (dump1090.c:1569-1588)
+  data bit 1: (pulse, silence); bit 0: (silence, pulse) — 2 samples/bit
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..constants import LONG_MSG_BITS
+from ..ops import crc as crc_ops
+
+PREAMBLE_PATTERN = np.array(
+    [1, 0, 1, 0, 0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0], dtype=np.float64
+)
+
+
+def make_df17_frame(
+    addr: int,
+    metype: int = 11,
+    mesub: int = 0,
+    me_payload: bytes = b"\x00\x00\x00\x00\x00\x00",
+    ca: int = 5,
+) -> bytes:
+    """Assemble a 112-bit DF17 frame with a valid CRC."""
+    msg = bytearray(14)
+    msg[0] = (17 << 3) | (ca & 7)
+    msg[1] = (addr >> 16) & 0xFF
+    msg[2] = (addr >> 8) & 0xFF
+    msg[3] = addr & 0xFF
+    msg[4] = ((metype & 31) << 3) | (mesub & 7)
+    msg[5:11] = me_payload[:6].ljust(6, b"\x00")
+    c = crc_ops.compute_crc(np.frombuffer(bytes(msg), np.uint8), LONG_MSG_BITS)
+    msg[11], msg[12], msg[13] = (c >> 16) & 0xFF, (c >> 8) & 0xFF, c & 0xFF
+    return bytes(msg)
+
+
+def envelope(frame: bytes) -> np.ndarray:
+    """Unit-amplitude PPM envelope of preamble + frame, 2 samples/us."""
+    bits = np.unpackbits(np.frombuffer(frame, np.uint8))
+    cells = np.zeros((len(bits), 2), dtype=np.float64)
+    cells[bits == 1, 0] = 1.0
+    cells[bits == 0, 1] = 1.0
+    return np.concatenate([PREAMBLE_PATTERN, cells.reshape(-1)])
+
+
+def frame_to_iq(
+    frame: bytes,
+    *,
+    amplitude: float = 80.0,
+    noise_sigma: float = 0.0,
+    phase: float = 0.3,
+    pad_before: int = 200,
+    pad_after: int = 400,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Modulate one frame into interleaved uint8 IQ centered at 127.
+
+    amplitude: pulse magnitude in ADC counts (<= ~127).
+    noise_sigma: AWGN added independently to I and Q.
+    phase: carrier phase in radians (splits energy between I and Q).
+    """
+    rng = rng or np.random.default_rng(0)
+    env = envelope(frame)
+    env = np.concatenate([np.zeros(pad_before), env, np.zeros(pad_after)])
+    i = amplitude * np.cos(phase) * env
+    q = amplitude * np.sin(phase) * env
+    if noise_sigma > 0:
+        i = i + rng.normal(0, noise_sigma, env.shape)
+        q = q + rng.normal(0, noise_sigma, env.shape)
+    iq = np.empty(2 * env.shape[0], dtype=np.float64)
+    iq[0::2] = i
+    iq[1::2] = q
+    return np.clip(np.round(iq) + 127, 0, 255).astype(np.uint8)
+
+
+def snr_db(amplitude: float, noise_sigma: float) -> float:
+    """Pulse-power to noise-power ratio in dB (per complex sample)."""
+    if noise_sigma <= 0:
+        return float("inf")
+    return 10 * np.log10((amplitude**2) / (2 * noise_sigma**2))
+
+
+def planted_capture(
+    n_blocks: int,
+    frames_per_block: int,
+    *,
+    seed: int,
+    noise_sigma: float = 2.0,
+    flip_weights: tuple[float, ...] = (0.8, 0.15, 0.05),
+    n_aircraft: int = 256,
+    margin: int = 300,
+) -> tuple[bytes, list[tuple[int, int, bytes, int]]]:
+    """A synthetic capture of `n_blocks` reference blocks (131072 samples,
+    262144 bytes each) with `frames_per_block` DF17 frames planted per block
+    over Gaussian noise, all drawn from `seed`.
+
+    Each frame has an address from a pool of `n_aircraft` (like real air,
+    where the same aircraft transmit again and again), an amplitude
+    (50..100 counts), a carrier phase, and 0, 1 or 2 flipped bits drawn
+    with `flip_weights`.  Frames sit
+    in equal slots of the block, at least `margin` samples from each other
+    and from the block edges, so no frame straddles two buffers however the
+    blocks are tiled.  Returns (IQ bytes, planted) with planted = [(block,
+    sample offset in the block, clean frame bytes, flipped bits)] in stream
+    order."""
+    from ..constants import BLOCK_SAMPLES
+
+    rng = np.random.default_rng(seed)
+    frame_len = len(PREAMBLE_PATTERN) + 2 * LONG_MSG_BITS  # 240 samples
+    slot = (BLOCK_SAMPLES - 2 * margin) // max(frames_per_block, 1)
+    if slot < frame_len + margin:
+        raise ValueError(f"{frames_per_block} frames do not fit one block")
+    blocks = []
+    planted = []
+    weights = np.asarray(flip_weights, dtype=np.float64)
+    pool = rng.integers(1, 1 << 24, n_aircraft)
+    for b in range(n_blocks):
+        i = rng.normal(0.0, noise_sigma, BLOCK_SAMPLES) if noise_sigma > 0 else np.zeros(BLOCK_SAMPLES)
+        q = rng.normal(0.0, noise_sigma, BLOCK_SAMPLES) if noise_sigma > 0 else np.zeros(BLOCK_SAMPLES)
+        for k in range(frames_per_block):
+            clean = make_df17_frame(int(rng.choice(pool)),
+                                    metype=int(rng.integers(1, 23)),
+                                    me_payload=rng.bytes(6))
+            nflip = int(rng.choice(len(weights), p=weights / weights.sum()))
+            f = bytearray(clean)
+            for p in rng.choice(np.arange(5, LONG_MSG_BITS), nflip, replace=False):
+                f[p >> 3] ^= 1 << (7 - (int(p) & 7))
+            off = margin + k * slot + int(rng.integers(0, slot - frame_len - margin + 1))
+            amp = float(rng.uniform(50.0, 100.0))
+            phase = float(rng.uniform(0.0, 2 * np.pi))
+            env = envelope(bytes(f))
+            i[off : off + frame_len] += amp * np.cos(phase) * env
+            q[off : off + frame_len] += amp * np.sin(phase) * env
+            planted.append((b, off, clean, nflip))
+        iq = np.empty(2 * BLOCK_SAMPLES, dtype=np.float64)
+        iq[0::2] = i
+        iq[1::2] = q
+        blocks.append(np.clip(np.round(iq) + 127, 0, 255).astype(np.uint8))
+    return np.concatenate(blocks).tobytes() if blocks else b"", planted
+
+
+def random_word_stream(seed: int, n_buffers: int, mc: int, now: int):
+    """An adversarial input for the sequential resolver (ops.resolve
+    resolve_words), shaped like the real candidate stream: ascending
+    positions per buffer, a valid prefix of nbuf[b] slots, PF_NEWBUF at each
+    buffer's slot 0, random gate bits; pass words with random flag bits and
+    addresses from a small pool that holds ICAO-cache hash collisions; and
+    an initial cache with fresh, just-expired (TTL) and empty entries.
+
+    Returns numpy int32 (pf, w1, w2, nbuf, cache_addr, cache_ts)."""
+    from ..constants import ICAO_CACHE_LEN, ICAO_CACHE_TTL, SCAN_POSITIONS
+    from ..models.decoder import IcaoCache
+    from ..ops.resolve import PF_GATE1, PF_NEWBUF, PF_VALID
+
+    rng = np.random.default_rng(seed)
+    colliding, by_slot = [], {}
+    while len(colliding) < 24:
+        a = int(rng.integers(1, 1 << 24))
+        h = IcaoCache.hash(a)
+        if h in by_slot:
+            colliding += [by_slot.pop(h), a]
+        else:
+            by_slot[h] = a
+    pool = np.array(colliding + [int(a) for a in rng.integers(1, 1 << 24, 8)])
+    n = n_buffers * mc
+    slot = np.arange(n) % mc
+    nbuf = rng.integers(0, mc + 1, n_buffers).astype(np.int32)
+    nbuf[0] = mc  # one full row
+    valid = slot < np.repeat(nbuf, mc)
+    pos = np.sort(rng.integers(0, SCAN_POSITIONS, (n_buffers, mc)), axis=1).reshape(-1)
+    pf = (pos | valid * PF_VALID | (slot == 0) * PF_NEWBUF
+          | (rng.random(n) < 0.7) * PF_GATE1).astype(np.int32)
+
+    def words():
+        flags = rng.integers(0, 32, n) << 24
+        return (rng.choice(pool, n) | flags).astype(np.int32)
+
+    w1, w2 = words(), words()
+    ca = np.zeros(ICAO_CACHE_LEN, np.int32)
+    ct = np.zeros(ICAO_CACHE_LEN, np.int32)
+    for k, a in enumerate(pool[:16]):
+        h = IcaoCache.hash(int(a))
+        ca[h] = a
+        ct[h] = now - (5 if k % 2 else ICAO_CACHE_TTL + 1)  # fresh / expired
+    return pf, w1, w2, nbuf, ca, ct

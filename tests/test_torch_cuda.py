@@ -1,0 +1,69 @@
+"""The CUDA kernels against their plain versions, and the pipeline on the
+card against the port's CPU run.  These need an NVIDIA card and nvcc; they
+carry the `cuda` marker and skip without a card.  On a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+NOW = 1_700_000_000
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("mc", [16, 24, 256])
+def test_gather_kernel_equals_plain(cuda, mc):
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.gather import WINDOW_PAD, gather_windows, gather_windows_plain
+
+    rng = np.random.default_rng(0)
+    b, s_pad = 5, 8 * 1024
+    m_pad = torch.from_numpy(rng.integers(0, 65168, (b, s_pad), dtype=np.uint16)).to(cuda)
+    pos = np.sort(rng.integers(0, s_pad - WINDOW_PAD - 2048, (b, mc)), axis=1)
+    pos[0, :4] = [0, 1, 127, 128]
+    pos = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    before = _cuda.launches["gather_windows"]
+    got = gather_windows(m_pad, pos)
+    torch.cuda.synchronize()
+    assert _cuda.launches["gather_windows"] == before + 1
+    assert torch.equal(got.view(torch.int16), gather_windows_plain(m_pad, pos).view(torch.int16))
+
+
+def test_resolve_kernel_equals_plain(cuda):
+    from dump1090_tpu_torch.ops import resolve as tr
+    from dump1090_tpu_torch.utils.synth import random_word_stream
+
+    for n_buffers, mc in [(6, 64), (2, 4096), (40, 256)]:
+        pf, w1, w2, nbuf, ca, ct = (torch.from_numpy(a).to(cuda)
+                                    for a in random_word_stream(7, n_buffers, mc, NOW))
+        h12 = tr._hash_words(w1, w2)
+        got = tr.resolve_words(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)
+        want = tr.resolve_words_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_pipeline_on_card_equals_cpu(cuda):
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    data, _ = planted_capture(5, 60, seed=21, noise_sigma=3.0)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2, max_candidates=16),
+                          clock=lambda: NOW, device=dev)
+        outs[dev] = (b"".join(p.stream_raw_device(io.BytesIO(data))), p.stats)
+    assert outs["cuda"] == outs["cpu"]

@@ -1,0 +1,69 @@
+"""The port stands alone: no file of dump1090_tpu_torch/ (nor chip_smoke.py)
+imports jax or dump1090_tpu, it decodes with both made unimportable, and
+its entry points refuse to fall back to the CPU when no card is present."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "dump1090_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    files = sorted((REPO / "dump1090_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for mod in _imported_modules(f):
+            root = mod.split(".")[0]
+            assert root not in FORBIDDEN, f"{f.relative_to(REPO)} imports {mod}"
+
+
+def test_decodes_with_jax_and_the_jax_package_unimportable():
+    code = """
+import io, sys
+sys.modules["jax"] = None
+sys.modules["dump1090_tpu"] = None
+from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+from dump1090_tpu_torch.utils.synth import planted_capture
+data, planted = planted_capture(1, 20, seed=9, flip_weights=(1.0,))
+p = DemodPipeline(PipelineConfig(), device="cpu", clock=lambda: 1_700_000_000)
+out = b"".join(p.stream_raw_device(io.BytesIO(data)))
+want = b"".join(b"*" + c.hex().encode() + b";\\n" for _, _, c, _ in planted)
+assert out == want, (out, want)
+assert not any(m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
+               for m, v in sys.modules.items() if v is not None)
+print("ok", p.stats.goodcrc)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "ok 20"
+
+
+def test_entry_points_refuse_cpu_fallback_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card refusal cannot be shown")
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DemodPipeline()
+    r = subprocess.run(
+        [sys.executable, "-m", "dump1090_tpu_torch", "--ifile",
+         str(REPO / "tests" / "golden" / "debug_p_input.bin"), "--raw"],
+        cwd=REPO, capture_output=True,
+    )
+    assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
