@@ -4,21 +4,32 @@
     python3 chip_smoke.py [--seed N] [--groups N]
 
 Builds the package's CUDA kernels from csrc/, holds each kernel against its
-plain PyTorch version at the file-decode width, drives the main path (the
---raw file decode, DemodPipeline.stream_raw_device, at the CLI's defaults:
-64-buffer batches, 8 batches per group, max_candidates 256, dispatch-ahead
-3) over a synthetic dense capture, and checks what comes out.  Every phase
-prints one JSON line; any failure raises and the script exits non-zero.
-The last line is {"ok": true, "device": {...}}.
+plain PyTorch version at the width of the path that runs it, and drives two
+paths over a synthetic dense capture, checking what comes out:
+
+  * the --raw file decode (DemodPipeline.stream_raw_device) at the CLI's
+    defaults: 64-buffer batches, 8 batches per group, max_candidates 256,
+    dispatch-ahead 3 (kernels K1 gather_windows and K2 resolve_words);
+  * the multi-capture decode (decode_captures) of 128 captures of 4-16
+    buffers, 4 buffers of each per round: one 512-buffer dispatch per round
+    (kernels K1 and K3 resolve_words_streams).
+
+Each path runs with the launch counts set to 0 just before it and read just
+after; every kernel must have launched on the path that uses it.  Every
+phase prints one JSON line; any failure raises and the script exits
+non-zero.  The last line is {"ok": true, "device": {...}}.
 
 The capture: 16 distinct blocks of 150 planted DF17 frames each over
 Gaussian noise (utils/synth.py planted_capture, drawn from --seed), tiled
-to --groups dispatch groups of 512 buffers (134 MB of IQ per group).
+to --groups dispatch groups of 512 buffers (134 MB of IQ per group) for the
+file decode, and rotated and cut into the 128 captures of the multi-capture
+decode.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import io
 import json
@@ -175,6 +186,245 @@ def resolve_phase(walk_in, mc: int, seed: int) -> dict:
           "adversarial_equal": True, "adversarial_steps": int(a_nbuf.sum().item()),
           "bytes_moved": moved, **res})
     return res
+
+
+def resolve_streams_phase(bufs: np.ndarray, seed: int, dev: torch.device, s_n: int = 128) -> dict:
+    """K3 against its plain version at the multi-capture width: 128 streams
+    of 4 buffers at mc 256, from 128 distinct 4-buffer slices of the dense
+    group (a seeded permutation of its 512 buffers) and from an adversarial
+    random word stream per stream, with some streams' counts all zero.
+    Each stream must also equal K2 walking that stream alone, and K3 with
+    one stream must equal K2.  Timings: K3, its plain version, and K2
+    walking the same 512 buffers as one stream."""
+    from dump1090_tpu_torch.ops.resolve import (
+        PF_VALID,
+        _group_front,
+        _group_precompute,
+        _hash_words,
+        resolve_words,
+        resolve_words_streams,
+        resolve_words_streams_plain,
+    )
+    from dump1090_tpu_torch.utils.synth import random_word_stream
+
+    nb, mc = 4, 256
+    perm = np.random.default_rng(seed).permutation(bufs.shape[0])[: s_n * nb]
+    xs = torch.from_numpy(bufs[perm].reshape(s_n, nb, -1)).to(dev)
+    m, n, pos = _group_front(xs, scan_len=131070, max_candidates=mc)
+    (pf, w1, w2, h12, nbuf), _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
+    del m, pos, xs
+    ca = torch.zeros((s_n, 1024), dtype=torch.int32, device=dev)
+    ct = torch.zeros_like(ca)
+    real = (pf, w1, w2, h12, nbuf, ca, ct)
+
+    parts = [random_word_stream(seed * 1000 + s, nb, mc, NOW) for s in range(s_n)]
+    a_pf, a_w1, a_w2, a_nbuf, a_ca, a_ct = (np.stack([p[i] for p in parts]) for i in range(6))
+    a_nbuf[5::16] = 0  # exhausted streams
+    a_pf[5::16] &= ~PF_VALID
+    a_pf, a_w1, a_w2, a_nbuf = (torch.from_numpy(a.reshape(-1)).to(dev)
+                                for a in (a_pf, a_w1, a_w2, a_nbuf))
+    a_ca, a_ct = (torch.from_numpy(a).to(dev) for a in (a_ca, a_ct))
+    adversarial = (a_pf, a_w1, a_w2, _hash_words(a_w1, a_w2), a_nbuf, a_ca, a_ct)
+
+    per = nb * mc
+    err = 0
+    plain_ms = None
+    for inp in (real, adversarial):
+        got = resolve_words_streams(*inp, NOW, mc, s_n)
+        t0 = time.perf_counter()
+        want = resolve_words_streams_plain(*inp, NOW, mc, s_n)
+        plain_ms = plain_ms if plain_ms is not None else (time.perf_counter() - t0) * 1e3
+        err = max(err, *(max_abs_err(g, w) for g, w in zip(got, want)))
+        i_pf, i_w1, i_w2, i_h12, i_nbuf, i_ca, i_ct = inp
+        for s in range(s_n):  # each stream alone through K2
+            sl = slice(s * per, (s + 1) * per)
+            one = resolve_words(i_pf[sl], i_w1[sl], i_w2[sl], i_h12[sl],
+                                i_nbuf[s * nb:(s + 1) * nb], i_ca[s], i_ct[s], NOW, mc)
+            err = max(err, max_abs_err(one[0], got[0][sl]), max_abs_err(one[1], got[1][s]),
+                      max_abs_err(one[2], got[2][s]))
+    # one stream of all 512 buffers: K3 with S = 1 against K2
+    one_k3 = resolve_words_streams(pf, w1, w2, h12, nbuf, ca[:1], ct[:1], NOW, mc, 1)
+    one_k2 = resolve_words(pf, w1, w2, h12, nbuf, ca[0], ct[0], NOW, mc)
+    err_one = max(max_abs_err(one_k3[0], one_k2[0]), max_abs_err(one_k3[1][0], one_k2[1]))
+    torch.cuda.synchronize()
+    if err or err_one:
+        raise AssertionError(f"multi-stream resolve kernel differs: {err}, {err_one}")
+
+    steps = torch.clamp(nbuf, 0, mc).reshape(s_n, nb).sum(dim=1)
+    longest, total = int(steps.max().item()), int(steps.sum().item())
+    ms = cuda_ms(lambda: resolve_words_streams(*real, NOW, mc, s_n), 20)
+    k2_ms = cuda_ms(lambda: resolve_words(pf, w1, w2, h12, nbuf, ca[0], ct[0], NOW, mc), 5)
+    # per stream, as resolve_phase reckons one walk: each walked slot's four
+    # input words read once, every word written once, the counts read
+    # once, the cache rows read and written once
+    moved = total * 16 + pf.numel() * 4 + nbuf.numel() * 4 + s_n * 4 * 1024 * 4
+    res = {
+        "name": "resolve_words_streams", "route": "cuda",
+        "source": "dump1090_tpu_torch/csrc/resolve_words.cu",
+        "replaces": "dump1090_tpu/ops/resolve.py:544",
+        "max_abs_err": max(err, err_one), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+    }
+    emit({"phase": "kernel_resolve_streams", "streams": s_n, "buffers_per_stream": nb,
+          "mc": mc, "slots": pf.numel(), "executed_steps": total,
+          "longest_stream_steps": longest,
+          "ns_per_critical_step": ms * 1e6 / max(longest, 1),
+          "k2_one_stream_ms": k2_ms, "k2_ns_per_step": k2_ms * 1e6 / max(total, 1),
+          "equal": True, "each_stream_equals_k2": True, "one_stream_equals_k2": True,
+          "adversarial_steps": int(torch.clamp(a_nbuf, 0, mc).sum().item()),
+          "exhausted_streams": int((a_nbuf.reshape(s_n, nb).sum(dim=1) == 0).sum().item()),
+          "bytes_moved": moved, **res})
+    return res
+
+
+@contextlib.contextmanager
+def frozen_clock():
+    """time.time() returns NOW inside: decode_captures reads its per-round
+    clock and decode_capture its cache clock through it."""
+    real = time.time
+    time.time = lambda: float(NOW)
+    try:
+        yield
+    finally:
+        time.time = real
+
+
+def captures_from_blocks(blocks: list, planted: list, n: int, lengths, rotate):
+    """n captures, capture k being len(k) consecutive blocks starting at
+    block rotate(k) (mod 16), with the clean planted frames it holds in
+    order."""
+    caps, want = [], []
+    by_block = collections.defaultdict(list)
+    for blk, _, frame, nflip in planted:
+        if nflip == 0:
+            by_block[blk].append(frame)
+    for k in range(n):
+        idx = [(rotate(k) + i) % len(blocks) for i in range(lengths(k))]
+        caps.append(b"".join(blocks[i] for i in idx))
+        want.append([f for i in idx for f in by_block[i]])
+    return caps, want
+
+
+def check_planted(results: list, want: list) -> int:
+    """Every clean planted frame of each capture appears crcok, in order.
+    Returns the number of frames checked."""
+    for k, (msgs, frames) in enumerate(zip(results, want)):
+        it = iter(m.msg[: m.msgbits // 8] for m in msgs if m.crcok)
+        if not all(f in it for f in frames):
+            raise AssertionError(f"capture {k}: a clean planted frame is missing or out of order")
+    return sum(len(f) for f in want)
+
+
+def captures_vs_cpu_phase(blocks: list, planted: list, dev: torch.device) -> None:
+    """decode_captures on the card against the port's own CPU run, field
+    for field, on 8 captures of 2-6 buffers."""
+    from dump1090_tpu_torch import decode_captures
+
+    caps, want = captures_from_blocks(blocks, planted, 8, lambda k: 2 + k % 5, lambda k: 3 * k)
+    runs = {}
+    with frozen_clock():
+        for d in (dev, "cpu"):
+            t1 = time.perf_counter()
+            runs[str(d)] = (decode_captures(caps, device=d), time.perf_counter() - t1)
+    card, cpu = runs[str(dev)], runs["cpu"]
+    if card[0] != cpu[0]:
+        raise AssertionError("decode_captures on the card differs from the CPU run")
+    frames = check_planted(card[0], want)
+    emit({"phase": "decode_captures_vs_cpu", "equal": True, "captures": len(caps),
+          "buffers": [len(c) // 262144 for c in caps],
+          "messages": sum(len(r) for r in card[0]), "planted_checked": frames,
+          "cuda_s": card[1], "cpu_s": cpu[1]})
+
+
+def captures_e2e_phase(blocks: list, planted: list, dev: torch.device, n: int = 128) -> dict:
+    """The multi-capture path, counted, at full width: 128 distinct
+    captures of 4-16 buffers through decode_captures on the card.  Every
+    capture is checked against its planted frames and 4 sampled ones against
+    the solo decode_capture, on the card and on the CPU.  Returns the
+    launch counts of the decode_captures run and of the solo runs."""
+    from dump1090_tpu_torch import api, decode_capture, decode_captures
+    from dump1090_tpu_torch.constants import BLOCK_SAMPLES
+    from dump1090_tpu_torch.ops import _cuda
+
+    caps, want = captures_from_blocks(blocks, planted, n, lambda k: 4 + (5 * k) % 13,
+                                      lambda k: k)
+    n_bufs = sum(len(c) // 262144 for c in caps)
+
+    # instrument the run from outside: the dispatches (with their per-stage
+    # CUDA events) and the host's message decode
+    dispatches, host_s = [], [0.0]
+    real_dispatch, real_decode = api.demod_resolve_streams, api.messages_from_device_arrays
+
+    def dispatch(xs, *a, **k):
+        marks = []
+        out = real_dispatch(xs, *a, marks=marks, **k)
+        dispatches.append((tuple(xs.shape[:2]), k["max_candidates"], k["max_out"], marks))
+        return out
+
+    def decode(*a):
+        t0 = time.perf_counter()
+        out = real_decode(*a)
+        host_s[0] += time.perf_counter() - t0
+        return out
+
+    api.demod_resolve_streams, api.messages_from_device_arrays = dispatch, decode
+    try:
+        with frozen_clock():
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t1 = time.perf_counter()
+            results = decode_captures(caps, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = dict(_cuda.launches)
+    finally:
+        api.demod_resolve_streams, api.messages_from_device_arrays = real_dispatch, real_decode
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    frames = check_planted(results, want)
+    # the solo path (decode_capture -> DemodPipeline.run_device, the
+    # unpacked group emission), counted, on sampled captures; each is held
+    # against decode_captures and against the same call on the CPU
+    sampled = sorted({0, n // 3, 2 * n // 3, n - 1})
+    with frozen_clock():
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        solo = {k: decode_capture(caps[k], device=dev) for k in sampled}
+        torch.cuda.synchronize()
+        solo_launches = dict(_cuda.launches)
+        for k in sampled:
+            if solo[k] != results[k]:
+                raise AssertionError(f"capture {k}: decode_captures differs from decode_capture")
+            if decode_capture(caps[k], device="cpu") != solo[k]:
+                raise AssertionError(f"capture {k}: decode_capture on the card differs from the CPU")
+
+    stages = collections.defaultdict(float)
+    device_ms = []
+    for _, _, _, marks in dispatches:
+        device_ms.append(marks[0][1].elapsed_time(marks[-1][1]))
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            stages[name] += a.elapsed_time(b) / len(dispatches)
+    rounds = -(-max(len(c) // 262144 for c in caps) // 4)
+    shapes = [(mc, mo) for _, mc, mo, _ in dispatches]
+    n_msgs = sum(len(r) for r in results)
+    samples = n_bufs * BLOCK_SAMPLES
+    res = {"phase": "decode_captures_e2e", "captures": len(caps), "buffers": n_bufs,
+           "samples": samples, "messages": n_msgs,
+           "crcok_messages": sum(m.crcok for r in results for m in r),
+           "planted_checked": frames, "clean_planted_in_order": True,
+           "solo_equal_sampled": sampled, "solo_equal_cpu": True,
+           "wall_s": wall, "msps": samples / wall / 1e6,
+           "messages_per_s": n_msgs / wall, "rounds": rounds,
+           "dispatches": len(dispatches), "tile_shapes": sorted(set(d[0] for d in dispatches)),
+           "replays": sum(1 for a, b in zip(shapes, shapes[1:]) if a != b),
+           "shapes": sorted(set(shapes)), "device_ms_per_dispatch": device_ms,
+           "stage_ms_per_dispatch": dict(stages), "device_s": sum(device_ms) / 1e3,
+           "host_decode_s": host_s[0], "host_decode_share": host_s[0] / wall,
+           "peak_device_bytes": peak}
+    emit(res)
+    return launches, solo_launches
 
 
 def stage_split(xg: torch.Tensor, shapes: dict) -> dict:
@@ -377,10 +627,22 @@ def main() -> int:
           "peak_device_bytes": peak, "settled_shapes": shapes,
           "groups_replayed": launches["resolve_words"] - args.groups})
 
-    emit({"phase": "kernels", "launches": launches})
-    for name, n_launch in launches.items():
-        if n_launch <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    # ---- the multi-capture path: K3 at its width, then the path itself ------
+    k3 = resolve_streams_phase(bufs, args.seed, dev)
+    blocks = [data[i * 262144:(i + 1) * 262144] for i in range(16)]
+    captures_vs_cpu_phase(blocks, planted, dev)
+    captures_launches, solo_launches = captures_e2e_phase(blocks, planted, dev)
+
+    paths = {
+        "file_decode": (launches, ("gather_windows", "resolve_words")),
+        "decode_captures": (captures_launches, ("gather_windows", "resolve_words_streams")),
+        "decode_capture": (solo_launches, ("gather_windows", "resolve_words")),
+    }
+    emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
+    for path, (counts, used) in paths.items():
+        for name in used:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the {path} path")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -390,11 +652,14 @@ def main() -> int:
           "cuda": torch.version.cuda})
     print(smi, flush=True)
 
+    # each kernel's launches on the path of its slice: K1 and K2 on the
+    # file decode, K3 on the multi-capture decode
     k1["launches"] = launches["gather_windows"]
     k2["launches"] = launches["resolve_words"]
+    k3["launches"] = captures_launches["resolve_words_streams"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2)]})
+    emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -7,11 +7,16 @@ names so each ported function can be found and held bit for bit against its
 counterpart.  It imports torch and numpy only: never jax, and nothing from
 `dump1090_tpu` (modules it needs from there are copied).
 
+Programmatic use: `decode_capture` (one capture) and `decode_captures`
+(many independent captures sharing each dispatch) return ModesMessage
+lists; `models.pipeline.DemodPipeline` is the streaming decoder behind the
+CLI.
+
 Entry points run on CUDA unless the caller asks for the CPU (`device="cpu"`,
-`--device cpu`); with no card and no such request they raise.  The two
-kernels that the TPU package wrote in Pallas are hand-written CUDA C++ for
-Hopper (`csrc/`), built with nvcc at first use; on a CPU tensor each kernel
-wrapper runs its plain PyTorch version instead.
+`--device cpu`); with no card and no such request they raise.  The kernels
+that the TPU package wrote in Pallas are hand-written CUDA C++ for Hopper
+(`csrc/`), built with nvcc at first use; on a CPU tensor each kernel wrapper
+runs its plain PyTorch version instead.
 """
 
 import torch
@@ -34,3 +39,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
     return dev
+
+
+from .api import decode_capture, decode_captures  # noqa: E402  (needs resolve_device)
+
+__all__ = ["decode_capture", "decode_captures", "resolve_device"]

@@ -1,6 +1,7 @@
-"""End-to-end file decode on the device: IQ bytes -> `*<hex>;` lines, with
-the demodulator AND the sequential resolver on the card (port of the device
-half of dump1090_tpu/models/pipeline.py used by --raw/--stats).
+"""End-to-end decode on the device: IQ bytes -> `*<hex>;` lines
+(stream_raw_device, the --raw/--stats path) or ModesMessage objects
+(run_device), with the demodulator AND the sequential resolver on the card
+(port of the device half of dump1090_tpu/models/pipeline.py).
 
 Groups of `dispatch_groups` x `batch_buffers` buffers are uploaded, and each
 group runs ops.resolve.demod_resolve_group with the ICAO cache chained on
@@ -21,7 +22,7 @@ import os
 import queue
 import threading
 from dataclasses import dataclass, field
-from typing import BinaryIO, Iterator
+from typing import BinaryIO, Callable, Iterator
 
 import numpy as np
 import torch
@@ -36,7 +37,14 @@ from ..ops.resolve import (
     interleave_packed,
     max_candidates_cap,
 )
-from .decoder import STAT_FIELDS, DecoderConfig, DecoderStats, IcaoCache
+from .decoder import (
+    STAT_FIELDS,
+    DecoderConfig,
+    DecoderStats,
+    IcaoCache,
+    ModesMessage,
+    messages_from_device_arrays,
+)
 from .state import state_from_numpy, state_to_numpy
 
 
@@ -103,8 +111,9 @@ class DemodPipeline:
         # working shapes; sticky growth lives on the INSTANCE so a shared
         # PipelineConfig is not mutated
         self._mc = self.cfg.max_candidates
-        self._mos = None  # emitted short-frame rows per batch
-        self._mol = None  # emitted long-frame rows per batch
+        self._mos = None  # emitted short-frame rows per batch (packed)
+        self._mol = None  # emitted long-frame rows per batch (packed)
+        self._mo = None   # emitted message rows per batch (unpacked)
         self.stats = DecoderStats()
         self.samples_in = 0      # new samples demodulated (throughput meter)
         self.cache = IcaoCache(clock=clock)
@@ -124,24 +133,37 @@ class DemodPipeline:
         both the demodulation and the sequential resolve on the device; the
         host only re-interleaves the packed short/long frame rows and
         formats hex."""
-        for count, count_long, shorts, longs in self._device_batches(stream):
+        for count, count_long, shorts, longs in self._device_batches(stream, packed=True):
             msg, bits = interleave_packed(count, count_long, shorts, longs)
             yield raw_lines_from_fields(msg, bits, np.ones(msg.shape[0], dtype=bool))
 
-    def _device_batches(self, stream: BinaryIO):
+    def run_device(self, stream: BinaryIO, emit: Callable[[ModesMessage], None]) -> None:
+        """Full-fidelity device path: every message the reference hands to
+        useModesMessage (good AND bad CRC), as ModesMessage objects in scan
+        order, with demod + sequential resolve on the device.  The field
+        decode on the host is stateless (models/decoder.py
+        message_from_device): every cache/CRC decision arrives in the
+        per-message meta word."""
+        for meta_h, msg_h in self._device_batches(stream, packed=False):
+            for mm in messages_from_device_arrays(msg_h, meta_h):
+                emit(mm)
+
+    def _device_batches(self, stream: BinaryIO, *, packed: bool):
         """Dispatch GROUPS of batches chained through the device-resident
         ICAO cache, fetch each group's emissions in one transfer, detect
         overflow by exact counts and replay from the pre-group state with
-        sticky shape growth.  Yields (count, count_long, shorts, longs) per
-        batch (see ops.resolve.interleave_packed).  The device cache is
-        synced back to the host cache at the end; stats accumulate into
-        self.stats.
+        sticky shape growth.  Yields per batch (count, count_long, shorts,
+        longs) when packed (see ops.resolve.interleave_packed), else
+        (meta[count], msg[count, 14]).  The device cache is synced back to
+        the host cache at the end; stats accumulate into self.stats.
 
         Clock granularity: `now` is sampled once per dispatch group, like
         the JAX package's device path."""
         nb = max(self.cfg.batch_buffers, 1)
         ng = max(self.cfg.dispatch_groups, 1)
         mc_cap = max_candidates_cap(nb * ng)
+        if self._mo is None:
+            self._mo = max(4096, nb * self._mc // 2)
         if self._mos is None:
             # sized so dense real air fits without a first-group overflow
             # retry; quiet air shrinks via adapt_down
@@ -157,23 +179,25 @@ class DemodPipeline:
             out = demod_resolve_group(
                 xg, ca, ct, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
                 scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
-                max_candidates=self._mc, max_out_short=self._mos,
-                max_out_long=self._mol,
+                max_candidates=self._mc, max_out=self._mo,
+                max_out_short=self._mos, max_out_long=self._mol,
+                packed=packed,
             )
             # start the fetch now: it runs as soon as the group finishes,
             # while the next groups compute; the cache stays on the device
-            return _Fetch(out[:6]), out[6], out[7]
+            return _Fetch(out[:-2]), out[-2], out[-1]
 
         # density adaptation: consecutive groups whose peaks sit far below
         # the shapes shrink them (quiet air stops paying dense-shaped cost);
         # any overflow grows them back immediately
         quiet_groups = 0
 
-        def adapt_down(n_h, peak_short, peak_long):
+        def adapt_down(n_h, peak_short, peak_long, peak_total):
             nonlocal quiet_groups
             if (int(n_h.max(initial=0)) * 8 <= self._mc
                     and peak_short * 8 <= self._mos
-                    and peak_long * 8 <= self._mol):
+                    and peak_long * 8 <= self._mol
+                    and peak_total * 8 <= self._mo):
                 quiet_groups += 1
             else:
                 quiet_groups = 0
@@ -182,9 +206,10 @@ class DemodPipeline:
                 self._mc = max(64, self._mc // 4)
                 self._mos = max(2048, self._mos // 4)
                 self._mol = max(2048, self._mol // 4)
+                self._mo = max(4096, self._mo // 4)
 
         def shapes_now():
-            return (self._mc, self._mos, self._mol)
+            return (self._mc, self._mos, self._mol, self._mo)
 
         def finish(work):
             """Fetch one group; returns (per-batch payloads, replayed
@@ -193,14 +218,22 @@ class DemodPipeline:
             # validate against the shapes this group was DISPATCHED with —
             # adapt_down may have shrunk them while it was in flight, and a
             # group that fit its own allocation is never replayed
-            mc_d, mos_d, mol_d = disp
+            mc_d, mos_d, mol_d, mo_d = disp
             redo = None
             while True:
-                n_h, count_h, clong_h, shorts_h, longs_h, stats_h = fetch.get()
+                host = fetch.get()
+                n_h, count_h, stats_h = host[0], host[1], host[-1]
                 n_peak = int(n_h.max(initial=0))
-                cs_peak = int((count_h - clong_h).max(initial=0))
-                cl_peak = int(clong_h.max(initial=0))
-                if n_peak <= mc_d and cs_peak <= mos_d and cl_peak <= mol_d:
+                if packed:
+                    clong_h = host[2]
+                    cs_peak = int((count_h - clong_h).max(initial=0))
+                    cl_peak = int(clong_h.max(initial=0))
+                    ct_peak = 0
+                else:
+                    cs_peak = cl_peak = 0
+                    ct_peak = int(count_h.max(initial=0))
+                if (n_peak <= mc_d and cs_peak <= mos_d and cl_peak <= mol_d
+                        and ct_peak <= mo_d):
                     break
                 # grow the overflowing shape(s) and replay from the
                 # pre-group state (exact counts: loud, never silent)
@@ -219,21 +252,33 @@ class DemodPipeline:
                     self._mos *= 4
                 while self._mol < cl_peak:
                     self._mol *= 4
-                # 16-bit rank field: keep mos+mol under the wire format's
-                # per-batch emission cap (raises if the peaks cannot fit)
-                self._mos, self._mol = clamp_packed_out(
-                    self._mos, self._mol, cs_peak, cl_peak
-                )
+                if packed:
+                    # 16-bit rank field: keep mos+mol under the wire
+                    # format's per-batch emission cap (raises if the peaks
+                    # cannot fit)
+                    self._mos, self._mol = clamp_packed_out(
+                        self._mos, self._mol, cs_peak, cl_peak
+                    )
+                while self._mo < ct_peak:
+                    self._mo *= 4
                 fetch, ca2, ct2 = dispatch(xg, *state_before)
-                mc_d, mos_d, mol_d = shapes_now()
+                mc_d, mos_d, mol_d, mo_d = shapes_now()
                 redo = (ca2, ct2)
-            adapt_down(n_h, cs_peak, cl_peak)
+            adapt_down(n_h, cs_peak, cl_peak, ct_peak)
             for name, d in zip(STAT_FIELDS, stats_h.sum(axis=0).tolist()):
                 setattr(self.stats, name, getattr(self.stats, name) + d)
-            payloads = [
-                (int(count_h[g]), int(clong_h[g]), shorts_h[g], longs_h[g])
-                for g in range(xg.shape[0])
-            ]
+            if packed:
+                _, _, clong_h, shorts_h, longs_h, _ = host
+                payloads = [
+                    (int(count_h[g]), int(clong_h[g]), shorts_h[g], longs_h[g])
+                    for g in range(xg.shape[0])
+                ]
+            else:
+                _, _, msg_h, meta_h, _ = host
+                payloads = [
+                    (meta_h[g, : count_h[g]], msg_h[g, : count_h[g]])
+                    for g in range(xg.shape[0])
+                ]
             return payloads, redo
 
         # dispatch-ahead depth (PipelineConfig.dispatch_ahead; 0 = auto)

@@ -34,7 +34,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches()
-launches = {"gather_windows": 0, "resolve_words": 0}
+launches = {"gather_windows": 0, "resolve_words": 0, "resolve_words_streams": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -48,6 +48,9 @@ _SIGNATURES = {
     # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out,
     #  n_buffers, mc, now, stream)
     "resolve_words": [_vp] * 10 + [_i, _i, _i, _vp],
+    # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out,
+    #  n_streams, bufs_per_stream, mc, now, stream)
+    "resolve_words_streams": [_vp] * 10 + [_i, _i, _i, _i, _vp],
 }
 
 

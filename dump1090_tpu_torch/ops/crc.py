@@ -74,6 +74,26 @@ def checksum(msg: np.ndarray, bits: int) -> int:
     return (crc ^ rem) & 0xFFFFFF
 
 
+def batch_syndromes(msgs: np.ndarray, bits: int) -> np.ndarray:
+    """Vectorized syndromes of a (B, 14) batch of frames (numpy, host side):
+    the GF(2) product of checksum_bit_matrix() with the data bits, XOR the
+    transmitted CRC.  uint32[B]."""
+    msgs = np.atleast_2d(np.asarray(msgs, dtype=np.uint8))
+    b = np.unpackbits(msgs[:, : bits // 8], axis=1)
+    offset = 0 if bits == LONG_MSG_BITS else LONG_MSG_BITS - SHORT_MSG_BITS
+    bitmat = checksum_bit_matrix()[offset : offset + bits - 24]  # (bits-24, 24)
+    crc_bits = (b[:, : bits - 24].astype(np.int32) @ bitmat.astype(np.int32)) & 1
+    weights = 1 << np.arange(23, -1, -1, dtype=np.int64)
+    crc = (crc_bits.astype(np.int64) * weights).sum(axis=1)
+    nb = bits // 8
+    rem = (
+        (msgs[:, nb - 3].astype(np.int64) << 16)
+        | (msgs[:, nb - 2].astype(np.int64) << 8)
+        | msgs[:, nb - 1].astype(np.int64)
+    )
+    return (crc ^ rem).astype(np.uint32)
+
+
 @functools.cache
 def bit_error_table() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Precomputed (syndrome, nbits, pos0, pos1) arrays, sorted by syndrome.

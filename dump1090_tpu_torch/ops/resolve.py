@@ -1,6 +1,8 @@
 """On-device candidate resolver: demodulation, the order-independent decode
-precompute, the sequential skip/ICAO-cache walk and the packed emission of
-one dispatch group (port of dump1090_tpu/ops/resolve.py, packed raw path).
+precompute, the sequential skip/ICAO-cache walk and the emission of one
+dispatch group, or of many independent capture streams sharing one dispatch
+(port of dump1090_tpu/ops/resolve.py: the packed raw emission, the unpacked
+msg + meta emission, and demod_resolve_streams).
 
 Behavioral contract: the candidate-resolution half of detectModeS +
 decodeModesMessage (dump1090.c:1563-1793, 1091-1209).
@@ -20,9 +22,11 @@ before the sequential part:
 What remains is sequential: the skip-until position (reset per buffer,
 advanced past good messages, dump1090.c:1769-1771) and the 1024-entry ICAO
 cache whose hits gate AP/IID acceptance.  That walk is the CUDA kernel
-csrc/resolve_words.cu (port of the Pallas kernel _resolve_kernel_factory);
-resolve_words_plain is its plain version.  Stats and the emission are
-derived from the decision words afterwards, vectorized.
+csrc/resolve_words.cu (port of the Pallas kernel _resolve_kernel_factory),
+in two forms: one stream (resolve_words), and S independent streams, one
+block each (resolve_words_streams); resolve_words_plain and
+resolve_words_streams_plain are their plain versions.  Stats and the
+emission are derived from the decision words afterwards, vectorized.
 
 Integer semantics: the JAX package relies on int32 wraparound (hash
 multiplies) and logical right shifts; torch's >> on int32 is arithmetic, so
@@ -84,7 +88,8 @@ R_ATT2 = 32
 R_CRCOK2 = 64
 R_GOOD2 = 128
 
-# meta word layout of emitted messages (unpacked emission; not on this path)
+# meta word layout of unpacked emissions (models/decoder.py message_from_device):
+# pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1 | crcok
 META_CRCOK = 1
 META_PHASE = 2
 META_LONG = 4
@@ -165,6 +170,26 @@ def max_candidates_cap(n_buffers: int) -> int:
     if cap > RESOLVE_CHUNK:
         cap -= cap % RESOLVE_CHUNK
     return cap
+
+
+def streams_dispatch_shape(s_n: int, nb: int, mc: int) -> tuple[int, int]:
+    """Largest (streams, buffers-per-stream) tile of one demod_resolve_streams
+    dispatch under MAX_GROUP_SLOTS candidate slots.  Callers with more
+    streams x buffers than fit one dispatch split their work into such
+    tiles; the result is the same, since skip state resets at every buffer
+    and each stream's cache row chains from tile to tile."""
+    mc = normalize_max_candidates(mc)
+    per_stream = nb * mc
+    if per_stream <= MAX_GROUP_SLOTS:
+        return min(s_n, MAX_GROUP_SLOTS // per_stream), nb
+    nb_fit = MAX_GROUP_SLOTS // mc
+    if nb_fit < 1:
+        raise OverflowError(
+            f"max_candidates {mc} alone exceeds the {MAX_GROUP_SLOTS}-slot "
+            f"dispatch bound — candidate density beyond the resolvable "
+            f"geometry"
+        )
+    return 1, nb_fit
 
 
 # ---- device-resident constant tables (built once per process and device) ----
@@ -352,21 +377,32 @@ def _pass_precompute(msgs, errors, gate, aggressive: bool, fix_errors: bool):
 # ---- the sequential walk --------------------------------------------------------
 
 
-def _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc):
-    streams = (pf, w1, w2, h12, nbuf, cache_addr, cache_ts)
-    for t in streams:
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
-            raise TypeError("resolve_words takes contiguous 1-D int32 tensors")
+def _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc, n_streams=None):
+    """The walk's input contract: contiguous int32 tensors on one device,
+    1-D slot streams of n_buffers x mc, and a 1-D cache of ICAO_CACHE_LEN
+    slots — or, for n_streams, (S, ICAO_CACHE_LEN) cache rows and a buffer
+    count that S divides."""
+    name = "resolve_words" if n_streams is None else "resolve_words_streams"
+    for t in (pf, w1, w2, h12, nbuf, cache_addr, cache_ts):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"{name} takes contiguous int32 tensors")
         if t.device != pf.device:
-            raise ValueError("resolve_words inputs must share one device")
+            raise ValueError(f"{name} inputs must share one device")
+    if any(t.dim() != 1 for t in (pf, w1, w2, h12, nbuf)):
+        raise ValueError(f"{name} takes 1-D slot streams and buffer counts")
     n = pf.shape[0]
     if any(t.shape[0] != n for t in (w1, w2, h12)) or n != nbuf.shape[0] * mc:
         raise ValueError(
             f"stream lengths {[t.shape[0] for t in (pf, w1, w2, h12)]} must "
             f"all equal n_buffers x mc = {nbuf.shape[0]} x {mc}"
         )
-    if cache_addr.shape[0] != ICAO_CACHE_LEN or cache_ts.shape[0] != ICAO_CACHE_LEN:
-        raise ValueError(f"the ICAO cache has {ICAO_CACHE_LEN} slots")
+    want = (ICAO_CACHE_LEN,) if n_streams is None else (n_streams, ICAO_CACHE_LEN)
+    if tuple(cache_addr.shape) != want or tuple(cache_ts.shape) != want:
+        raise ValueError(f"{name} takes ICAO caches of shape {want}")
+    if n_streams is not None and (n_streams < 1 or nbuf.shape[0] % n_streams):
+        raise ValueError(
+            f"{nbuf.shape[0]} buffers do not split into {n_streams} streams"
+        )
 
 
 def resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int):
@@ -456,7 +492,58 @@ def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int
     return words, ca, ct
 
 
-# ---- stats and packed emission ----------------------------------------------------
+def resolve_words_streams_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
+                                now: int, mc: int, n_streams: int):
+    """Plain version of the multi-stream walk: S independent streams laid
+    end to end, stream s owning buffers [s*NB, (s+1)*NB) of the flat layout
+    and cache row s.  Each stream is resolve_words_plain on its own slice,
+    starting at skip 0.  Returns (words, cache_addr' (S, L), cache_ts' (S, L))."""
+    _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc, n_streams)
+    nb = nbuf.shape[0] // n_streams
+    per = nb * mc
+    outs = [
+        resolve_words_plain(
+            pf[s * per:(s + 1) * per], w1[s * per:(s + 1) * per],
+            w2[s * per:(s + 1) * per], h12[s * per:(s + 1) * per],
+            nbuf[s * nb:(s + 1) * nb], cache_addr[s], cache_ts[s], now, mc,
+        )
+        for s in range(n_streams)
+    ]
+    words, ca, ct = zip(*outs)
+    return torch.cat(words), torch.stack(ca), torch.stack(ct)
+
+
+def resolve_words_streams(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
+                          now: int, mc: int, n_streams: int):
+    """The multi-stream walk: the CUDA kernel (one block per stream, the
+    streams in parallel) on CUDA tensors, the plain version on CPU tensors.
+    Same contract as resolve_words_streams_plain; the input cache tensors
+    are never written."""
+    _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc, n_streams)
+    if pf.device.type == "cpu":
+        return resolve_words_streams_plain(
+            pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now, mc, n_streams
+        )
+    if pf.device.type != "cuda":
+        raise ValueError(f"resolve_words_streams runs on cuda or cpu, not {pf.device}")
+    words = torch.empty_like(pf)
+    ca = torch.empty_like(cache_addr)
+    ct = torch.empty_like(cache_ts)
+    lib = _cuda.library()
+    with torch.cuda.device(pf.device):
+        err = lib.resolve_words_streams(
+            pf.data_ptr(), w1.data_ptr(), w2.data_ptr(), h12.data_ptr(),
+            nbuf.data_ptr(), cache_addr.data_ptr(), cache_ts.data_ptr(),
+            words.data_ptr(), ca.data_ptr(), ct.data_ptr(),
+            n_streams, nbuf.shape[0] // n_streams, mc, int(now),
+            _cuda.current_stream(pf.device),
+        )
+    _cuda.launches["resolve_words_streams"] += 1
+    _cuda.check(err, "resolve_words_streams")
+    return words, ca, ct
+
+
+# ---- stats and emission -------------------------------------------------------------
 
 
 def _first_k(mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -469,31 +556,30 @@ def _first_k(mask: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return sel, ok
 
 
-def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
-                        max_out_short: int, max_out_long: int):
-    """Stats + packed emission of every batch of a group, vectorized over
-    the batch axis: words/pos (G, P), msg*f (G, P, 14), aux* (G, P).
+def _pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Interleave per-slot pass-1 and pass-2 values into emission order:
+    (G, P, ...) x2 -> (G, 2P, ...), slot i's pass 1 at 2i, pass 2 at 2i+1."""
+    g_n, n_slots = a.shape[:2]
+    return torch.stack([a, b], dim=2).reshape((g_n, 2 * n_slots) + tuple(a.shape[2:]))
 
-    dump1090.c:1737-1753 detect-path counters incl. the single-bit double
-    count, dump1090.c:1122-1126 decode path.  Returns (count (G,),
-    count_long (G,), shorts uint8 (G, mos, 9), longs uint8 (G, mol, 14),
-    stats int32 (G, 8))."""
-    g_n, n_slots = words.shape
+
+def _batch_stats(words, pos, aux1, aux2):
+    """The eight DecoderStats counter deltas of every batch, int32 (G, 8),
+    from its decision words: dump1090.c:1737-1753 detect-path counters incl.
+    the single-bit double count, dump1090.c:1122-1126 decode path."""
 
     def bit(b: int) -> torch.Tensor:
         return (words & b) != 0
 
-    att1, crcok1 = bit(R_ATT1), bit(R_CRCOK1)
-    run2, att2 = bit(R_RUN2), bit(R_ATT2)
-    crcok2 = bit(R_CRCOK2)
-
     def s(a: torch.Tensor) -> torch.Tensor:
         return a.sum(dim=1, dtype=torch.int32)
 
+    att1, crcok1 = bit(R_ATT1), bit(R_CRCOK1)
+    run2, att2, crcok2 = bit(R_RUN2), bit(R_ATT2), bit(R_CRCOK2)
     d1 = att1 & crcok1  # pass-1 detect stats are gated on final crcok
     fixflag1 = d1 & ~aux1["clean"]
     fixflag2 = att2 & ~aux2["clean"]
-    stats = torch.stack([
+    return torch.stack([
         s(bit(R_RUN)),                                     # valid_preamble
         s(run2 & (pos > 0)),                               # out_of_phase
         s(d1 & aux1["errors0"]) + s(att2 & aux2["errors0"]),   # demodulated
@@ -507,32 +593,74 @@ def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
         s(att1 & aux1["fixed_two"]) + s(att2 & aux2["fixed_two"]),
     ], dim=1)
 
-    # ---- emitted messages, first-K in scan order (crcok only: raw path) ----
-    emask = torch.stack([att1 & crcok1, att2 & crcok2], dim=2).reshape(g_n, 2 * n_slots)
-    count = s(emask)
-    long_slot = torch.stack([aux1["long"], aux2["long"]], dim=2).reshape(g_n, 2 * n_slots)
-    msgs12 = torch.stack([msg1f, msg2f], dim=2).reshape(g_n, 2 * n_slots, 14)
 
-    count_long = s(emask & long_slot)
+def _gather_rows(rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """rows (G, L, W) at the indices sel (G, K) -> (G, K, W)."""
+    return torch.gather(rows, 1, sel[..., None].expand(sel.shape + rows.shape[2:]))
+
+
+def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
+                        max_out_short: int, max_out_long: int):
+    """Stats + packed emission of every batch of a group, vectorized over
+    the batch axis: words/pos (G, P), msg*f (G, P, 14), aux* (G, P).
+    Only crcok messages are emitted (the raw/stats path).  Returns (count
+    (G,), count_long (G,), shorts uint8 (G, mos, 9), longs uint8 (G, mol,
+    14), stats int32 (G, 8))."""
+    stats = _batch_stats(words, pos, aux1, aux2)
+    emask = _pairs(((words & R_ATT1) != 0) & ((words & R_CRCOK1) != 0),
+                   ((words & R_ATT2) != 0) & ((words & R_CRCOK2) != 0))
+    count = emask.sum(dim=1, dtype=torch.int32)
+    long_slot = _pairs(aux1["long"], aux2["long"])
+    msgs12 = _pairs(msg1f, msg2f)
+
+    count_long = (emask & long_slot).sum(dim=1, dtype=torch.int32)
     ei = emask.to(torch.int32)
     rank = torch.cumsum(ei, dim=1, dtype=torch.int32).sub_(ei)
     sel_s, ok_s = _first_k(emask & ~long_slot, max_out_short)
-    sel_l, ok_l = _first_k(emask & long_slot, max_out_long)
+    sel_l, _ = _first_k(emask & long_slot, max_out_long)
     rank_s = torch.where(ok_s, torch.gather(rank, 1, sel_s), 0)
-
-    def rows(sel: torch.Tensor, width: int) -> torch.Tensor:
-        idx = sel[..., None].expand(g_n, sel.shape[1], width)
-        return torch.gather(msgs12[..., :width], 1, idx)
-
     shorts = torch.cat(
         [
-            rows(sel_s, 7),
+            _gather_rows(msgs12[..., :7], sel_s),
             (rank_s & 0xFF).to(torch.uint8)[..., None],
             ((rank_s >> 8) & 0xFF).to(torch.uint8)[..., None],
         ],
         dim=2,
     )
-    return count, count_long, shorts, rows(sel_l, 14), stats
+    return count, count_long, shorts, _gather_rows(msgs12, sel_l), stats
+
+
+def _postprocess_unpacked(words, msg1f, msg2f, pos, aux1, aux2, *, max_out: int):
+    """Stats + unpacked emission of every batch, vectorized over the batch
+    axis (the shapes of _postprocess_packed): every attempted decode, good
+    and bad CRC, in scan order, as 14 frame bytes and a meta word
+    pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1 | crcok, -1
+    beyond the count.  Returns (count (G,), msg uint8 (G, max_out, 14),
+    meta int32 (G, max_out), stats int32 (G, 8))."""
+    stats = _batch_stats(words, pos, aux1, aux2)
+
+    def bit(b: int) -> torch.Tensor:
+        return (words & b) != 0
+
+    att1, crcok1, att2, crcok2 = bit(R_ATT1), bit(R_CRCOK1), bit(R_ATT2), bit(R_CRCOK2)
+    emask = _pairs(att1, att2)
+    count = emask.sum(dim=1, dtype=torch.int32)
+    sel, ok = _first_k(emask, max_out)
+    msg_out = _gather_rows(_pairs(msg1f, msg2f), sel)
+
+    def i32(a: torch.Tensor) -> torch.Tensor:
+        return a.to(torch.int32)
+
+    meta_slot = (
+        i32(_pairs(crcok1, crcok2)) * META_CRCOK
+        + i32(_pairs(torch.zeros_like(att1), bit(R_GOOD2))) * META_PHASE
+        + i32(_pairs(aux1["long"], aux2["long"])) * META_LONG
+        + ((_pairs(aux1["errorbit"], aux2["errorbit"]) + 1) << META_ERRBIT_SHIFT)
+        + (_pairs(pos, pos) << META_POS_SHIFT)
+    )
+    pass2 = i32((sel & 1) == 1) * META_PASS
+    meta_out = torch.where(ok, torch.gather(meta_slot, 1, sel) + pass2, -1)
+    return count, msg_out, meta_out, stats
 
 
 # ---- the group: front, back, and the two together ----------------------------------
@@ -593,11 +721,26 @@ def _group_precompute(m, n, pos, fix_errors: bool, aggressive: bool, *,
     return (pf, w1, w2, h12, nbuf), (msg1f, msg2f, aux1, aux2, pos_f)
 
 
+def _emit(post, rows: int, words, msg1f, msg2f, pos_f, aux1, aux2):
+    """Run an emission (_postprocess_packed or _postprocess_unpacked, with
+    its shape arguments bound) over the flat slot arrays cut into `rows`
+    batches or streams."""
+
+    def by_row(a: torch.Tensor) -> torch.Tensor:
+        return a.reshape((rows, -1) + tuple(a.shape[1:]))
+
+    return post(
+        by_row(words), by_row(msg1f), by_row(msg2f), by_row(pos_f),
+        {k: by_row(v) for k, v in aux1.items()},
+        {k: by_row(v) for k, v in aux2.items()},
+    )
+
+
 def _group_back(m, n, pos, cache_addr, cache_ts, now: int, fix_errors: bool,
-                aggressive: bool, *, g_n: int, max_candidates: int,
-                max_out_short: int, max_out_long: int, marks=None):
+                aggressive: bool, *, g_n: int, max_candidates: int, post,
+                marks=None):
     """_group_precompute + the single sequential walk over the group's
-    candidate stream + stats and packed emission of every batch."""
+    candidate stream + stats and emission (`post`) of every batch."""
     walk_in, (msg1f, msg2f, aux1, aux2, pos_f) = _group_precompute(
         m, n, pos, fix_errors, aggressive, max_candidates=max_candidates,
         marks=marks,
@@ -606,18 +749,19 @@ def _group_back(m, n, pos, cache_addr, cache_ts, now: int, fix_errors: bool,
         *walk_in, cache_addr, cache_ts, now, max_candidates
     )
     _mark(marks, "resolve")
-
-    def by_batch(a: torch.Tensor) -> torch.Tensor:
-        return a.reshape((g_n, -1) + tuple(a.shape[1:]))
-
-    outs = _postprocess_packed(
-        by_batch(words), by_batch(msg1f), by_batch(msg2f), by_batch(pos_f),
-        {k: by_batch(v) for k, v in aux1.items()},
-        {k: by_batch(v) for k, v in aux2.items()},
-        max_out_short=max_out_short, max_out_long=max_out_long,
-    )
+    outs = _emit(post, g_n, words, msg1f, msg2f, pos_f, aux1, aux2)
     _mark(marks, "emission")
     return (n.reshape(g_n, -1),) + outs + (ca, ct)
+
+
+def _check_entry(x: torch.Tensor, scan_len: int, shape: str) -> None:
+    if scan_len > PF_POS_MASK:
+        raise ValueError(
+            f"scan_len {scan_len} exceeds the {PF_POS_MASK} packed-position "
+            f"limit of the resolver word layout"
+        )
+    if x.dtype != torch.uint8 or x.dim() != 3:
+        raise TypeError(f"the IQ input must be uint8 {shape}, got {x.dtype} {tuple(x.shape)}")
 
 
 def demod_resolve_group(
@@ -630,18 +774,20 @@ def demod_resolve_group(
     *,
     scan_len: int,
     max_candidates: int,
-    max_out_short: int,
-    max_out_long: int,
+    max_out: int = 0,
+    max_out_short: int = 0,
+    max_out_long: int = 0,
+    packed: bool = True,
     marks: list | None = None,
 ):
     """Device pipeline over a dispatch GROUP: xg is (G, NB, nbytes) uint8 IQ
     on the device; every buffer is demodulated, the whole candidate stream
     is resolved in ONE kernel walk (the ICAO cache and the per-buffer skip
     state chain through it in stream order), and each batch's messages are
-    emitted in the packed raw/stats wire format.  Everything is enqueued
-    without a host sync.
+    emitted.  Everything is enqueued without a host sync.
 
-    Returns:
+    Returns, with packed=True (the raw/stats wire format: crcok messages
+    only; max_out is not read):
       n          int32[G, NB]      exact preamble count per buffer
       count      int32[G]          exact emitted-message count per batch
       count_long int32[G]          how many of those are 112-bit frames
@@ -649,34 +795,84 @@ def demod_resolve_group(
       longs      uint8[G, mol, 14] 14 frame bytes, in emission order
       stats      int32[G, 8]       reference counter deltas (DecoderStats order)
       cache_addr', cache_ts'       int32[1024]
-    Overflow is detected from the exact counts (n > max_candidates,
-    count-count_long > mos or count_long > mol), never silently truncated.
+    With packed=False (the full-fidelity format of run_device: every
+    attempted decode, good and bad CRC):
+      n, count, msg uint8[G, max_out, 14], meta int32[G, max_out], stats,
+      cache_addr', cache_ts'
+    where meta is pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1
+    | crcok, -1 beyond the count (models/decoder.py message_from_device
+    consumes it).  Overflow is detected from the exact counts (n >
+    max_candidates, count-count_long > mos or count_long > mol, count >
+    max_out), never silently truncated.
 
     `marks`, when a list, collects (stage, CUDA event) pairs for a
     per-stage timing split (CUDA only)."""
-    if scan_len > PF_POS_MASK:
-        raise ValueError(
-            f"scan_len {scan_len} exceeds the {PF_POS_MASK} packed-position "
-            f"limit of the resolver word layout"
-        )
-    if max_out_short + max_out_long > PACKED_RANK_LIMIT:
+    _check_entry(xg, scan_len, "(G, NB, nbytes)")
+    if packed and max_out_short + max_out_long > PACKED_RANK_LIMIT:
         raise ValueError(
             f"max_out_short + max_out_long = "
             f"{max_out_short + max_out_long} exceeds the "
             f"{PACKED_RANK_LIMIT}-message packed rank field; use "
             f"clamp_packed_out on the allocations"
         )
-    if xg.dtype != torch.uint8 or xg.dim() != 3:
-        raise TypeError(f"xg must be uint8 (G, NB, nbytes), got {xg.dtype} {tuple(xg.shape)}")
+    if packed:
+        post = functools.partial(_postprocess_packed, max_out_short=max_out_short,
+                                 max_out_long=max_out_long)
+    else:
+        post = functools.partial(_postprocess_unpacked, max_out=max_out)
     max_candidates = normalize_max_candidates(max_candidates)
     _mark(marks, "start")
     m, n, pos = _group_front(xg, scan_len=scan_len, max_candidates=max_candidates)
     _mark(marks, "front")
     return _group_back(
         m, n, pos, cache_addr, cache_ts, now, bool(fix_errors), bool(aggressive),
-        g_n=xg.shape[0], max_candidates=max_candidates,
-        max_out_short=max_out_short, max_out_long=max_out_long, marks=marks,
+        g_n=xg.shape[0], max_candidates=max_candidates, post=post, marks=marks,
     )
+
+
+def demod_resolve_streams(
+    xs: torch.Tensor,
+    cache_addr: torch.Tensor,
+    cache_ts: torch.Tensor,
+    now: int,
+    fix_errors: bool,
+    aggressive: bool,
+    *,
+    scan_len: int,
+    max_candidates: int,
+    max_out: int,
+    marks: list | None = None,
+):
+    """S INDEPENDENT capture streams share one demod + resolve dispatch
+    (api.decode_captures): xs is (S, NB, nbytes) uint8, stream s's next NB
+    buffers, and cache_addr/cache_ts are (S, ICAO_CACHE_LEN) per-stream
+    ICAO caches.  All S*NB buffers go through one front and one precompute;
+    the walk is the multi-stream kernel, each stream resolved exactly as if
+    decoded alone (skip state from 0, its own cache row).  Nothing syncs the
+    host.
+
+    Returns (n (S, NB), count (S,), msg (S, max_out, 14), meta (S, max_out),
+    stats (S, 8), cache_addr' (S, L), cache_ts' (S, L)) — the unpacked
+    demod_resolve_group layout with a leading stream axis."""
+    _check_entry(xs, scan_len, "(S, NB, nbytes)")
+    s_n, nb, _ = xs.shape
+    max_candidates = normalize_max_candidates(max_candidates)
+    _mark(marks, "start")
+    m, n, pos = _group_front(xs, scan_len=scan_len, max_candidates=max_candidates)
+    _mark(marks, "front")
+    walk_in, (msg1f, msg2f, aux1, aux2, pos_f) = _group_precompute(
+        m, n, pos, bool(fix_errors), bool(aggressive),
+        max_candidates=max_candidates, marks=marks,
+    )
+    del m
+    words, ca, ct = resolve_words_streams(
+        *walk_in, cache_addr, cache_ts, now, max_candidates, s_n
+    )
+    _mark(marks, "resolve")
+    post = functools.partial(_postprocess_unpacked, max_out=max_out)
+    count, msg, meta, stats = _emit(post, s_n, words, msg1f, msg2f, pos_f, aux1, aux2)
+    _mark(marks, "emission")
+    return n.reshape(s_n, nb), count, msg, meta, stats, ca, ct
 
 
 def interleave_packed(count, count_long, shorts, longs):

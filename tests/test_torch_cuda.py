@@ -56,6 +56,49 @@ def test_resolve_kernel_equals_plain(cuda):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n_streams,nb,mc", [(1, 6, 64), (5, 4, 256), (3, 2, 4096)])
+def test_resolve_streams_kernel_equals_plain_and_k2(cuda, n_streams, nb, mc):
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops import resolve as tr
+    from dump1090_tpu_torch.utils.synth import random_word_stream
+
+    parts = [random_word_stream(3 + s, nb, mc, NOW) for s in range(n_streams)]
+    pf, w1, w2, nbuf, ca, ct = (np.stack([p[i] for p in parts]) for i in range(6))
+    if n_streams > 1:  # one exhausted stream
+        nbuf[1] = 0
+        pf[1] &= ~tr.PF_VALID
+    pf, w1, w2, nbuf = (torch.from_numpy(a.reshape(-1)).to(cuda) for a in (pf, w1, w2, nbuf))
+    ca, ct = (torch.from_numpy(a).to(cuda) for a in (ca, ct))
+    h12 = tr._hash_words(w1, w2)
+    before = _cuda.launches["resolve_words_streams"]
+    got = tr.resolve_words_streams(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc, n_streams)
+    torch.cuda.synchronize()
+    assert _cuda.launches["resolve_words_streams"] == before + 1
+    want = tr.resolve_words_streams_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc, n_streams)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    per = nb * mc
+    for s in range(n_streams):  # each stream equals K2 on that stream alone
+        sl = slice(s * per, (s + 1) * per)
+        one = tr.resolve_words(pf[sl], w1[sl], w2[sl], h12[sl], nbuf[s * nb:(s + 1) * nb],
+                               ca[s], ct[s], NOW, mc)
+        assert torch.equal(one[0], got[0][sl])
+        assert torch.equal(one[1], got[1][s]) and torch.equal(one[2], got[2][s])
+
+
+def test_decode_captures_on_card_equals_cpu(cuda, monkeypatch):
+    import time
+
+    from dump1090_tpu_torch import decode_captures
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    monkeypatch.setattr(time, "time", lambda: float(NOW))
+    data, _ = planted_capture(4, 60, seed=5, noise_sigma=3.0)
+    caps = [data, data[: 2 * 262144], data[262144:]]
+    outs = {dev: decode_captures(caps, device=dev) for dev in ("cuda", "cpu")}
+    assert outs["cuda"] == outs["cpu"] and all(outs["cuda"])
+
+
 def test_pipeline_on_card_equals_cpu(cuda):
     from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
     from dump1090_tpu_torch.utils.synth import planted_capture
@@ -67,3 +110,20 @@ def test_pipeline_on_card_equals_cpu(cuda):
                           clock=lambda: NOW, device=dev)
         outs[dev] = (b"".join(p.stream_raw_device(io.BytesIO(data))), p.stats)
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_run_device_on_card_equals_cpu(cuda):
+    """The unpacked group emission (run_device) on the card, with candidate
+    growth forced, against the CPU run."""
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    data, _ = planted_capture(5, 60, seed=22, noise_sigma=3.0)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2, max_candidates=16),
+                          clock=lambda: NOW, device=dev)
+        msgs = []
+        p.run_device(io.BytesIO(data), msgs.append)
+        outs[dev] = (msgs, p.stats)
+    assert outs["cuda"] == outs["cpu"] and outs["cuda"][0]

@@ -45,6 +45,12 @@ p = DemodPipeline(PipelineConfig(), device="cpu", clock=lambda: 1_700_000_000)
 out = b"".join(p.stream_raw_device(io.BytesIO(data)))
 want = b"".join(b"*" + c.hex().encode() + b";\\n" for _, _, c, _ in planted)
 assert out == want, (out, want)
+import dump1090_tpu_torch
+msgs = dump1090_tpu_torch.decode_captures([data, data[:200_000]], crcok_only=True,
+                                          device="cpu")
+assert [b"*" + m.msg[: m.msgbits // 8].hex().encode() + b";\\n" for m in msgs[0]] \
+    == want.splitlines(keepends=True)
+assert len(msgs[1]) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
                for m, v in sys.modules.items() if v is not None)
 print("ok", p.stats.goodcrc)
@@ -61,6 +67,12 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DemodPipeline()
+    from dump1090_tpu_torch import decode_capture, decode_captures
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_captures([b"\x7f" * 1000])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_capture(b"\x7f" * 1000)
     r = subprocess.run(
         [sys.executable, "-m", "dump1090_tpu_torch", "--ifile",
          str(REPO / "tests" / "golden" / "debug_p_input.bin"), "--raw"],
