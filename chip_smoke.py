@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed N] [--groups N]
 
 Builds the package's CUDA kernels from csrc/, holds each kernel against its
-plain PyTorch version at the width of the path that runs it, and drives two
-paths over a synthetic dense capture, checking what comes out:
+plain PyTorch version at the width of the path that runs it (the resolver
+walks K2 and K3 on the dense and a sparse group's word streams, on random
+words and on a forced-cut stream, with their batch and cut counts), and
+drives two paths over a synthetic dense capture, checking what comes out:
 
   * the --raw file decode (DemodPipeline.stream_raw_device) at the CLI's
     defaults: 64-buffer batches, 8 batches per group, max_candidates 256,
@@ -23,7 +25,8 @@ The capture: 16 distinct blocks of 150 planted DF17 frames each over
 Gaussian noise (utils/synth.py planted_capture, drawn from --seed), tiled
 to --groups dispatch groups of 512 buffers (134 MB of IQ per group) for the
 file decode, and rotated and cut into the 128 captures of the multi-capture
-decode.
+decode.  Sparse air for the resolver phases: 16 blocks of 10 frames each at
+the same noise, tiled to one group.
 """
 
 from __future__ import annotations
@@ -142,34 +145,62 @@ def gather_phase(m_pad: torch.Tensor, pos: torch.Tensor) -> dict:
     return res
 
 
-def resolve_phase(walk_in, mc: int, seed: int) -> dict:
-    """K2 against its plain version on one full group's real word stream and
-    on an adversarial random stream; timings and ns per executed step."""
+# K2's and K3's times on the dense stream with the one-thread walk that the
+# batched walk replaced (chip runs on an NVIDIA H100 80GB HBM3 at 700 W,
+# recorded in PERF.md), printed beside this run's for reference
+K2_PREV_MS = [13.46, 13.58]
+K3_PREV_MS = [0.1131, 0.1160]
+
+
+def walk_summary(counts: torch.Tensor, steps: torch.Tensor, ms: float) -> dict:
+    """Batches and cuts of a walk (per block: one for K2, one per stream for
+    K3) beside its steps and time; ns per step along the longest block."""
+    b, c = (int(x) for x in counts.sum(dim=0).tolist())
+    longest = int(steps.max().item())
+    return {"steps": int(steps.sum().item()), "longest_block_steps": longest, "ms": ms,
+            "ns_per_step": ms * 1e6 / max(longest, 1), "batches": b, "cuts": c,
+            "steps_per_batch": int(steps.sum().item()) / max(b, 1),
+            "longest_block_batches": int(counts[:, 0].max().item())}
+
+
+def resolve_phase(walk_in, sparse_in, mc: int, seed: int) -> dict:
+    """K2 against its plain version on one full group's real word stream of
+    dense and of sparse air, on an adversarial random stream and on the
+    forced-cut stream; timings, ns per executed step, and the walk's
+    batches and cuts."""
     from dump1090_tpu_torch.ops.resolve import _hash_words, resolve_words, resolve_words_plain
-    from dump1090_tpu_torch.utils.synth import random_word_stream
+    from dump1090_tpu_torch.utils.synth import forced_cut_stream, random_word_stream
 
     pf, w1, w2, h12, nbuf = walk_in
     dev = pf.device
     ca = torch.zeros(1024, dtype=torch.int32, device=dev)
     ct = torch.zeros(1024, dtype=torch.int32, device=dev)
-    got = resolve_words(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)
-    t0 = time.perf_counter()
-    want = resolve_words_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(max_abs_err(g, w) for g, w in zip(got, want))
 
-    adv = [torch.from_numpy(a).to(dev) for a in random_word_stream(seed, 512, mc, NOW)]
-    a_pf, a_w1, a_w2, a_nbuf, a_ca, a_ct = adv
-    a_h12 = _hash_words(a_w1, a_w2)
-    a_got = resolve_words(a_pf, a_w1, a_w2, a_h12, a_nbuf, a_ca, a_ct, NOW, mc)
-    a_want = resolve_words_plain(a_pf, a_w1, a_w2, a_h12, a_nbuf, a_ca, a_ct, NOW, mc)
-    err_adv = max(max_abs_err(g, w) for g, w in zip(a_got, a_want))
+    def synthetic(make):
+        s_pf, s_w1, s_w2, s_nbuf, s_ca, s_ct = (torch.from_numpy(a).to(dev)
+                                                for a in make(seed, 512, mc, NOW))
+        return s_pf, s_w1, s_w2, _hash_words(s_w1, s_w2), s_nbuf, s_ca, s_ct
+
+    streams = {"dense": (pf, w1, w2, h12, nbuf, ca, ct),
+               "sparse": (*sparse_in, ca, ct),
+               "adversarial": synthetic(random_word_stream),
+               "forced_cut": synthetic(forced_cut_stream)}
+    err, plain_ms, counts = 0, None, {}
+    for name, inp in streams.items():
+        *got, counts[name] = resolve_words(*inp, NOW, mc, walk_counts=True)
+        t0 = time.perf_counter()
+        want = resolve_words_plain(*inp, NOW, mc)
+        plain_ms = plain_ms if plain_ms is not None else (time.perf_counter() - t0) * 1e3
+        err = max(err, *(max_abs_err(g, w) for g, w in zip(got, want)))
     torch.cuda.synchronize()
-    if err or err_adv:
-        raise AssertionError(f"resolve kernel differs from its plain version: {err}, {err_adv}")
+    if err:
+        raise AssertionError(f"resolve kernel differs from its plain version: {err}")
 
-    steps = int(torch.clamp_max(nbuf, mc).sum().item())
-    ms = cuda_ms(lambda: resolve_words(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc), 10)
+    walks = {}
+    for name, inp in streams.items():
+        ms = cuda_ms(lambda: resolve_words(*inp, NOW, mc), 10)
+        walks[name] = walk_summary(counts[name], torch.clamp(inp[4], 0, mc).sum()[None], ms)
+    steps = walks["dense"]["steps"]
     # each walked slot's four input words read once, every word written
     # once, the counts read once, the cache read and written once
     moved = steps * 16 + pf.numel() * 4 + nbuf.numel() * 4 + 4 * 1024 * 4
@@ -177,25 +208,28 @@ def resolve_phase(walk_in, mc: int, seed: int) -> dict:
         "name": "resolve_words", "route": "cuda",
         "source": "dump1090_tpu_torch/csrc/resolve_words.cu",
         "replaces": "dump1090_tpu/ops/resolve.py:544",
-        "max_abs_err": max(err, err_adv), "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": walks["dense"]["ms"], "plain_ms": plain_ms,
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
     }
     emit({"phase": "kernel_resolve", "slots": pf.numel(), "executed_steps": steps,
-          "ns_per_step": ms * 1e6 / max(steps, 1), "equal": True,
-          "adversarial_equal": True, "adversarial_steps": int(a_nbuf.sum().item()),
-          "bytes_moved": moved, **res})
+          "ns_per_step": walks["dense"]["ns_per_step"], "equal": True,
+          "sparse_equal": True, "adversarial_equal": True, "forced_cut_equal": True,
+          "walks": walks, "prev_ms": K2_PREV_MS, "bytes_moved": moved, **res})
     return res
 
 
-def resolve_streams_phase(bufs: np.ndarray, seed: int, dev: torch.device, s_n: int = 128) -> dict:
+def resolve_streams_phase(bufs: np.ndarray, sparse_bufs: np.ndarray, seed: int,
+                          dev: torch.device, s_n: int = 128) -> dict:
     """K3 against its plain version at the multi-capture width: 128 streams
     of 4 buffers at mc 256, from 128 distinct 4-buffer slices of the dense
-    group (a seeded permutation of its 512 buffers) and from an adversarial
-    random word stream per stream, with some streams' counts all zero.
-    Each stream must also equal K2 walking that stream alone, and K3 with
-    one stream must equal K2.  Timings: K3, its plain version, and K2
-    walking the same 512 buffers as one stream."""
+    group (a seeded permutation of its 512 buffers), the same of the sparse
+    group, and an adversarial random word stream and a forced-cut stream
+    per stream, with some streams' counts all zero.  Each stream must also
+    equal K2 walking that stream alone, and K3 with one stream must equal
+    K2.  Timings (with the walk's batches and cuts): K3 on the dense and the
+    sparse streams, its plain version, and K2 walking the same 512 buffers
+    as one stream."""
     from dump1090_tpu_torch.ops.resolve import (
         PF_VALID,
         _group_front,
@@ -205,32 +239,41 @@ def resolve_streams_phase(bufs: np.ndarray, seed: int, dev: torch.device, s_n: i
         resolve_words_streams,
         resolve_words_streams_plain,
     )
-    from dump1090_tpu_torch.utils.synth import random_word_stream
+    from dump1090_tpu_torch.utils.synth import forced_cut_stream, random_word_stream
 
     nb, mc = 4, 256
     perm = np.random.default_rng(seed).permutation(bufs.shape[0])[: s_n * nb]
-    xs = torch.from_numpy(bufs[perm].reshape(s_n, nb, -1)).to(dev)
-    m, n, pos = _group_front(xs, scan_len=131070, max_candidates=mc)
-    (pf, w1, w2, h12, nbuf), _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
-    del m, pos, xs
     ca = torch.zeros((s_n, 1024), dtype=torch.int32, device=dev)
     ct = torch.zeros_like(ca)
-    real = (pf, w1, w2, h12, nbuf, ca, ct)
 
-    parts = [random_word_stream(seed * 1000 + s, nb, mc, NOW) for s in range(s_n)]
-    a_pf, a_w1, a_w2, a_nbuf, a_ca, a_ct = (np.stack([p[i] for p in parts]) for i in range(6))
-    a_nbuf[5::16] = 0  # exhausted streams
-    a_pf[5::16] &= ~PF_VALID
-    a_pf, a_w1, a_w2, a_nbuf = (torch.from_numpy(a.reshape(-1)).to(dev)
-                                for a in (a_pf, a_w1, a_w2, a_nbuf))
-    a_ca, a_ct = (torch.from_numpy(a).to(dev) for a in (a_ca, a_ct))
-    adversarial = (a_pf, a_w1, a_w2, _hash_words(a_w1, a_w2), a_nbuf, a_ca, a_ct)
+    def from_air(b: np.ndarray):
+        xs = torch.from_numpy(b[perm].reshape(s_n, nb, -1)).to(dev)
+        m, n, pos = _group_front(xs, scan_len=131070, max_candidates=mc)
+        walk_in, _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
+        return (*walk_in, ca, ct)
+
+    def synthetic(make):
+        parts = [make(seed * 1000 + s, nb, mc, NOW) for s in range(s_n)]
+        a_pf, a_w1, a_w2, a_nbuf, a_ca, a_ct = (np.stack([p[i] for p in parts]) for i in range(6))
+        a_nbuf[5::16] = 0  # exhausted streams
+        a_pf[5::16] &= ~PF_VALID
+        a_pf, a_w1, a_w2, a_nbuf = (torch.from_numpy(a.reshape(-1)).to(dev)
+                                    for a in (a_pf, a_w1, a_w2, a_nbuf))
+        a_ca, a_ct = (torch.from_numpy(a).to(dev) for a in (a_ca, a_ct))
+        return a_pf, a_w1, a_w2, _hash_words(a_w1, a_w2), a_nbuf, a_ca, a_ct
+
+    streams = {"dense": from_air(bufs), "sparse": from_air(sparse_bufs),
+               "adversarial": synthetic(random_word_stream),
+               "forced_cut": synthetic(forced_cut_stream)}
+    real = streams["dense"]
+    pf, w1, w2, h12, nbuf = real[:5]
 
     per = nb * mc
     err = 0
     plain_ms = None
-    for inp in (real, adversarial):
-        got = resolve_words_streams(*inp, NOW, mc, s_n)
+    counts = {}
+    for name, inp in streams.items():
+        *got, counts[name] = resolve_words_streams(*inp, NOW, mc, s_n, walk_counts=True)
         t0 = time.perf_counter()
         want = resolve_words_streams_plain(*inp, NOW, mc, s_n)
         plain_ms = plain_ms if plain_ms is not None else (time.perf_counter() - t0) * 1e3
@@ -250,9 +293,12 @@ def resolve_streams_phase(bufs: np.ndarray, seed: int, dev: torch.device, s_n: i
     if err or err_one:
         raise AssertionError(f"multi-stream resolve kernel differs: {err}, {err_one}")
 
-    steps = torch.clamp(nbuf, 0, mc).reshape(s_n, nb).sum(dim=1)
-    longest, total = int(steps.max().item()), int(steps.sum().item())
-    ms = cuda_ms(lambda: resolve_words_streams(*real, NOW, mc, s_n), 20)
+    walks = {}
+    for name, inp in streams.items():
+        ms = cuda_ms(lambda: resolve_words_streams(*inp, NOW, mc, s_n), 20)
+        steps = torch.clamp(inp[4], 0, mc).reshape(s_n, nb).sum(dim=1)
+        walks[name] = walk_summary(counts[name], steps, ms)
+    ms, longest, total = (walks["dense"][k] for k in ("ms", "longest_block_steps", "steps"))
     k2_ms = cuda_ms(lambda: resolve_words(pf, w1, w2, h12, nbuf, ca[0], ct[0], NOW, mc), 5)
     # per stream, as resolve_phase reckons one walk: each walked slot's four
     # input words read once, every word written once, the counts read
@@ -266,12 +312,15 @@ def resolve_streams_phase(bufs: np.ndarray, seed: int, dev: torch.device, s_n: i
         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
     }
+    a_nbuf = streams["adversarial"][4]
     emit({"phase": "kernel_resolve_streams", "streams": s_n, "buffers_per_stream": nb,
           "mc": mc, "slots": pf.numel(), "executed_steps": total,
           "longest_stream_steps": longest,
           "ns_per_critical_step": ms * 1e6 / max(longest, 1),
           "k2_one_stream_ms": k2_ms, "k2_ns_per_step": k2_ms * 1e6 / max(total, 1),
-          "equal": True, "each_stream_equals_k2": True, "one_stream_equals_k2": True,
+          "equal": True, "sparse_equal": True, "adversarial_equal": True,
+          "forced_cut_equal": True, "each_stream_equals_k2": True,
+          "one_stream_equals_k2": True, "walks": walks, "prev_ms": K3_PREV_MS,
           "adversarial_steps": int(torch.clamp(a_nbuf, 0, mc).sum().item()),
           "exhausted_streams": int((a_nbuf.reshape(s_n, nb).sum(dim=1) == 0).sum().item()),
           "bytes_moved": moved, **res})
@@ -520,8 +569,16 @@ def main() -> int:
     m, n, pos = _group_front(xg, scan_len=131070, max_candidates=mc)
     walk_in, _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
     k1 = gather_phase(pad_magnitudes(m), pos)
-    k2 = resolve_phase(walk_in, mc, args.seed)
-    del m, pos, walk_in
+    del m, pos
+    # sparse air: 10 frames per block at the same noise, tiled to one group
+    sparse_blocks, _ = planted_capture(16, 10, seed=args.seed + 1)
+    sparse_bufs = np.stack(list(iq_buffers(io.BytesIO(sparse_blocks * (group_blocks // 16)))))
+    m, n, pos = _group_front(torch.from_numpy(sparse_bufs.reshape(8, 64, -1)).to(dev),
+                             scan_len=131070, max_candidates=mc)
+    sparse_in, _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
+    del m, pos
+    k2 = resolve_phase(walk_in, sparse_in, mc, args.seed)
+    del walk_in, sparse_in
 
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         # ---- the main path on the card vs the port's CPU run: first group ----
@@ -628,7 +685,8 @@ def main() -> int:
           "groups_replayed": launches["resolve_words"] - args.groups})
 
     # ---- the multi-capture path: K3 at its width, then the path itself ------
-    k3 = resolve_streams_phase(bufs, args.seed, dev)
+    k3 = resolve_streams_phase(bufs, sparse_bufs, args.seed, dev)
+    del sparse_bufs
     blocks = [data[i * 262144:(i + 1) * 262144] for i in range(16)]
     captures_vs_cpu_phase(blocks, planted, dev)
     captures_launches, solo_launches = captures_e2e_phase(blocks, planted, dev)

@@ -45,12 +45,12 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # (m_pad, pos, out, B, s_pad, mc, stream)
     "gather_windows": [_vp, _vp, _vp, _i, _i, _i, _vp],
-    # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out,
+    # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out, counts,
     #  n_buffers, mc, now, stream)
-    "resolve_words": [_vp] * 10 + [_i, _i, _i, _vp],
-    # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out,
+    "resolve_words": [_vp] * 11 + [_i, _i, _i, _vp],
+    # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out, counts,
     #  n_streams, bufs_per_stream, mc, now, stream)
-    "resolve_words_streams": [_vp] * 10 + [_i, _i, _i, _i, _vp],
+    "resolve_words_streams": [_vp] * 11 + [_i, _i, _i, _i, _vp],
 }
 
 

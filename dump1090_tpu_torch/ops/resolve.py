@@ -22,9 +22,10 @@ before the sequential part:
 What remains is sequential: the skip-until position (reset per buffer,
 advanced past good messages, dump1090.c:1769-1771) and the 1024-entry ICAO
 cache whose hits gate AP/IID acceptance.  That walk is the CUDA kernel
-csrc/resolve_words.cu (port of the Pallas kernel _resolve_kernel_factory),
-in two forms: one stream (resolve_words), and S independent streams, one
-block each (resolve_words_streams); resolve_words_plain and
+csrc/resolve_words.cu (port of the Pallas kernel _resolve_kernel_factory;
+a warp settles up to 32 steps a batch), in two forms: one stream
+(resolve_words), and S independent streams, one block each
+(resolve_words_streams); resolve_words_plain and
 resolve_words_streams_plain are their plain versions.  Stats and the
 emission are derived from the decision words afterwards, vectorized.
 
@@ -467,11 +468,24 @@ def resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, m
     return out(words), out(ca), out(ct)
 
 
-def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int):
+def _walk_counts_tensor(walk_counts: bool, blocks: int, device):
+    """The kernel's per-block (batches, cuts) counts when the caller asks for
+    them, else None (the kernel then counts nothing)."""
+    if not walk_counts:
+        return None
+    if device.type != "cuda":
+        raise ValueError("walk_counts come from the CUDA kernel; the plain version has none")
+    return torch.zeros((blocks, 2), dtype=torch.int32, device=device)
+
+
+def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int, *,
+                  walk_counts: bool = False):
     """The sequential walk: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors.  Same contract as resolve_words_plain; the input
-    cache tensors are never written."""
+    cache tensors are never written.  With walk_counts (CUDA only) it also
+    returns the kernel's int32 (1, 2) count of its batches and its cuts."""
     _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc)
+    counts = _walk_counts_tensor(walk_counts, 1, pf.device)
     if pf.device.type == "cpu":
         return resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now, mc)
     if pf.device.type != "cuda":
@@ -485,11 +499,12 @@ def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int
             pf.data_ptr(), w1.data_ptr(), w2.data_ptr(), h12.data_ptr(),
             nbuf.data_ptr(), cache_addr.data_ptr(), cache_ts.data_ptr(),
             words.data_ptr(), ca.data_ptr(), ct.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             nbuf.shape[0], mc, int(now), _cuda.current_stream(pf.device),
         )
     _cuda.launches["resolve_words"] += 1
     _cuda.check(err, "resolve_words")
-    return words, ca, ct
+    return (words, ca, ct) if counts is None else (words, ca, ct, counts)
 
 
 def resolve_words_streams_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
@@ -514,12 +529,14 @@ def resolve_words_streams_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
 
 
 def resolve_words_streams(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
-                          now: int, mc: int, n_streams: int):
+                          now: int, mc: int, n_streams: int, *, walk_counts: bool = False):
     """The multi-stream walk: the CUDA kernel (one block per stream, the
     streams in parallel) on CUDA tensors, the plain version on CPU tensors.
     Same contract as resolve_words_streams_plain; the input cache tensors
-    are never written."""
+    are never written.  With walk_counts (CUDA only) it also returns the
+    kernel's int32 (S, 2) count of each stream's batches and cuts."""
     _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc, n_streams)
+    counts = _walk_counts_tensor(walk_counts, n_streams, pf.device)
     if pf.device.type == "cpu":
         return resolve_words_streams_plain(
             pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now, mc, n_streams
@@ -535,12 +552,13 @@ def resolve_words_streams(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
             pf.data_ptr(), w1.data_ptr(), w2.data_ptr(), h12.data_ptr(),
             nbuf.data_ptr(), cache_addr.data_ptr(), cache_ts.data_ptr(),
             words.data_ptr(), ca.data_ptr(), ct.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             n_streams, nbuf.shape[0] // n_streams, mc, int(now),
             _cuda.current_stream(pf.device),
         )
     _cuda.launches["resolve_words_streams"] += 1
     _cuda.check(err, "resolve_words_streams")
-    return words, ca, ct
+    return (words, ca, ct) if counts is None else (words, ca, ct, counts)
 
 
 # ---- stats and emission -------------------------------------------------------------

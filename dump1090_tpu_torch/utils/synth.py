@@ -191,3 +191,65 @@ def random_word_stream(seed: int, n_buffers: int, mc: int, now: int):
         ca[h] = a
         ct[h] = now - (5 if k % 2 else ICAO_CACHE_TTL + 1)  # fresh / expired
     return pf, w1, w2, nbuf, ca, ct
+
+
+def forced_cut_stream(seed: int, n_buffers: int, mc: int, now: int):
+    """A resolver input (ops.resolve resolve_words) that writes one ICAO
+    cache slot back to back with colliding addresses, so that a walk which
+    settles several steps at once must cut nearly every batch: runs of 8
+    slots alternate the two addresses of one colliding pair, most slots
+    attempt an addable decode (a cache write) on pass 1 or, through the
+    gate, on pass 2, and most pass CRC only when the cache holds their
+    address, so each write turns the next slot's lookup.  One pair is
+    address 0 and an address of the same slot, so 0 is written over a live
+    entry.  Counts include 0, mc, one
+    below 0, one above mc and odd ones; the initial cache holds fresh,
+    just-expired and empty entries in the pairs' slots.
+
+    Returns numpy int32 (pf, w1, w2, nbuf, cache_addr, cache_ts), as
+    random_word_stream."""
+    from ..constants import ICAO_CACHE_LEN, ICAO_CACHE_TTL, SCAN_POSITIONS
+    from ..models.decoder import IcaoCache
+    from ..ops.resolve import (
+        PF_GATE1, PF_NEWBUF, PF_VALID, W_ADDABLE, W_ATTEMPT, W_CRCOK_NOSEEN, W_CRCOK_SEEN,
+    )
+
+    rng = np.random.default_rng(seed)
+    h0 = IcaoCache.hash(0)
+    zero_partner = next(a for a in iter(lambda: int(rng.integers(1, 1 << 24)), None)
+                        if IcaoCache.hash(a) == h0)
+    pairs, by_slot = [(0, zero_partner)], {}
+    while len(pairs) < 6:
+        a = int(rng.integers(1, 1 << 24))
+        h = IcaoCache.hash(a)
+        if h in by_slot:
+            pairs.append((by_slot.pop(h), a))
+        else:
+            by_slot[h] = a
+    pairs = np.array(pairs, dtype=np.int64)
+    n = n_buffers * mc
+    slot = np.arange(n) % mc
+    nbuf = rng.integers(1, mc + 1, n_buffers).astype(np.int32)
+    for b, c in enumerate((mc, 0, -3, mc + 5, min(37, mc))[:n_buffers]):
+        nbuf[b] = c
+    valid = slot < np.repeat(np.clip(nbuf, 0, mc), mc)
+    pos = np.sort(rng.integers(0, SCAN_POSITIONS, (n_buffers, mc)), axis=1).reshape(-1)
+    gate = rng.random(n) < 0.5
+    pf = (pos | valid * PF_VALID | (slot == 0) * PF_NEWBUF | gate * PF_GATE1).astype(np.int32)
+
+    i = np.arange(n)
+    addr = pairs[(i // 8) % len(pairs), i % 2]
+    crcok = rng.integers(0, 2, (2, n)) * W_CRCOK_SEEN | rng.integers(0, 2, (2, n)) * W_CRCOK_NOSEEN
+    crcok[:, rng.random(n) < 0.85] = W_CRCOK_SEEN  # mostly: CRC ok when the cache holds it
+    on2 = gate & (rng.random(n) < 0.4)  # pass 1 does not attempt, pass 2 writes
+    w1 = addr | np.where(on2, 0, W_ATTEMPT | W_ADDABLE) | crcok[0]
+    w2 = addr | W_ATTEMPT | W_ADDABLE | crcok[1]
+    other = rng.random(n) < 0.1  # a few slots with random flags and addresses
+    w1 = np.where(other, rng.choice(pairs.reshape(-1), n) | rng.integers(0, 32, n) << 24, w1)
+    ca = np.zeros(ICAO_CACHE_LEN, np.int32)
+    ct = np.zeros(ICAO_CACHE_LEN, np.int32)
+    for k, (a, b) in enumerate(pairs):
+        h = IcaoCache.hash(int(b))
+        ca[h] = b
+        ct[h] = now - (3 if k % 3 else ICAO_CACHE_TTL + 1)  # fresh / just expired
+    return pf, w1.astype(np.int32), w2.astype(np.int32), nbuf, ca, ct

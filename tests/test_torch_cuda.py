@@ -41,49 +41,96 @@ def test_gather_kernel_equals_plain(cuda, mc):
     assert torch.equal(got.view(torch.int16), gather_windows_plain(m_pad, pos).view(torch.int16))
 
 
+def _walk_inputs(mc):
+    """The walk's adversarial inputs at width mc, as numpy int32 (pf, w1,
+    w2, nbuf, cache_addr, cache_ts): random words, and the forced-cut
+    stream (a cache slot written back to back with colliding addresses,
+    address 0 among them; counts 0, mc, below 0 and above mc)."""
+    from dump1090_tpu_torch.utils.synth import forced_cut_stream, random_word_stream
+
+    nb = 2 if mc > 1024 else 6
+    return [random_word_stream(7, nb, mc, NOW), forced_cut_stream(8, nb, mc, NOW)]
+
+
+def _at_offset(t, off):
+    """t's values in a contiguous view `off` elements into a larger
+    buffer: the kernel copies 16-byte aligned runs, so an input that starts
+    between two 16-byte boundaries has ragged ends."""
+    buf = torch.zeros(t.numel() + 4, dtype=t.dtype, device=t.device)
+    buf[off:off + t.numel()] = t
+    return buf[off:off + t.numel()]
+
+
 def test_resolve_kernel_equals_plain(cuda):
+    from test_torch_resolve_batched import _random_stream, batched_walk, zero_write_stream
+
     from dump1090_tpu_torch.ops import resolve as tr
     from dump1090_tpu_torch.utils.synth import random_word_stream
 
-    for n_buffers, mc in [(6, 64), (2, 4096), (40, 256)]:
-        pf, w1, w2, nbuf, ca, ct = (torch.from_numpy(a).to(cuda)
-                                    for a in random_word_stream(7, n_buffers, mc, NOW))
-        h12 = tr._hash_words(w1, w2)
-        got = tr.resolve_words(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)
+    def hashed(arrays):
+        pf, w1, w2, nbuf, ca, ct = arrays
+        return pf, w1, w2, tr._hash_words(torch.from_numpy(w1), torch.from_numpy(w2)).numpy(), nbuf, ca, ct
+
+    cases = [(hashed(a), mc) for mc in (64, 4096) for a in _walk_inputs(mc)]
+    cases += [(hashed(random_word_stream(7, 40, 256, NOW)), 256)]
+    # buffers that straddle chunks, and a chunk of 1024 one-slot buffers
+    cases += [(hashed(random_word_stream(9, 9, 300, NOW)), 300),
+              (hashed(random_word_stream(5, 2100, 1, NOW)), 1)]
+    cases += [(hashed(zero_write_stream(expired)), 8) for expired in (False, True)]
+    # arbitrary words: every flag at random, walked slots without PF_VALID,
+    # PF_NEWBUF anywhere, hash slots that collide
+    cases += [(_random_stream(seed, 4, 70), 70) for seed in range(4)]
+    cases += [(_random_stream(11, 20, 300), 300)]
+    for arrays, mc in cases:
+        pf, w1, w2, h12, nbuf, ca, ct = (torch.from_numpy(a).to(cuda) for a in arrays)
         want = tr.resolve_words_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        model = batched_walk(*arrays, NOW, mc)
+        for offsets in ((0, 0, 0, 0), (1, 2, 3, 1), (3, 0, 1, 2)):
+            views = [_at_offset(t, off) for t, off in zip((pf, w1, w2, h12), offsets)]
+            *got, counts = tr.resolve_words(*views, nbuf, ca, ct, NOW, mc, walk_counts=True)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (mc, offsets)
+            # the kernel took the model's batches and cuts
+            assert counts.tolist() == [[model[3], model[4]]], (mc, offsets)
+        assert len(tr.resolve_words(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc)) == 3
 
 
 @pytest.mark.parametrize("n_streams,nb,mc", [(1, 6, 64), (5, 4, 256), (3, 2, 4096)])
 def test_resolve_streams_kernel_equals_plain_and_k2(cuda, n_streams, nb, mc):
+    from test_torch_resolve_batched import batched_walk
+
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.ops import resolve as tr
-    from dump1090_tpu_torch.utils.synth import random_word_stream
+    from dump1090_tpu_torch.utils.synth import forced_cut_stream, random_word_stream
 
-    parts = [random_word_stream(3 + s, nb, mc, NOW) for s in range(n_streams)]
-    pf, w1, w2, nbuf, ca, ct = (np.stack([p[i] for p in parts]) for i in range(6))
-    if n_streams > 1:  # one exhausted stream
-        nbuf[1] = 0
-        pf[1] &= ~tr.PF_VALID
-    pf, w1, w2, nbuf = (torch.from_numpy(a.reshape(-1)).to(cuda) for a in (pf, w1, w2, nbuf))
-    ca, ct = (torch.from_numpy(a).to(cuda) for a in (ca, ct))
-    h12 = tr._hash_words(w1, w2)
-    before = _cuda.launches["resolve_words_streams"]
-    got = tr.resolve_words_streams(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc, n_streams)
-    torch.cuda.synchronize()
-    assert _cuda.launches["resolve_words_streams"] == before + 1
-    want = tr.resolve_words_streams_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc, n_streams)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    per = nb * mc
-    for s in range(n_streams):  # each stream equals K2 on that stream alone
-        sl = slice(s * per, (s + 1) * per)
-        one = tr.resolve_words(pf[sl], w1[sl], w2[sl], h12[sl], nbuf[s * nb:(s + 1) * nb],
-                               ca[s], ct[s], NOW, mc)
-        assert torch.equal(one[0], got[0][sl])
-        assert torch.equal(one[1], got[1][s]) and torch.equal(one[2], got[2][s])
+    for make in (random_word_stream, forced_cut_stream):
+        parts = [make(3 + s, nb, mc, NOW) for s in range(n_streams)]
+        pf, w1, w2, nbuf, ca, ct = (np.stack([p[i] for p in parts]) for i in range(6))
+        if n_streams > 1:  # one exhausted stream
+            nbuf[1] = 0
+            pf[1] &= ~tr.PF_VALID
+        pf, w1, w2, nbuf = (torch.from_numpy(a.reshape(-1)).to(cuda) for a in (pf, w1, w2, nbuf))
+        ca, ct = (torch.from_numpy(a).to(cuda) for a in (ca, ct))
+        h12 = tr._hash_words(w1, w2)
+        before = _cuda.launches["resolve_words_streams"]
+        *got, counts = tr.resolve_words_streams(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc,
+                                                n_streams, walk_counts=True)
+        torch.cuda.synchronize()
+        assert _cuda.launches["resolve_words_streams"] == before + 1
+        want = tr.resolve_words_streams_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW, mc, n_streams)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        per = nb * mc
+        for s in range(n_streams):  # each stream equals K2 on that stream alone
+            sl = slice(s * per, (s + 1) * per)
+            one = tr.resolve_words(pf[sl], w1[sl], w2[sl], h12[sl], nbuf[s * nb:(s + 1) * nb],
+                                   ca[s], ct[s], NOW, mc)
+            assert torch.equal(one[0], got[0][sl])
+            assert torch.equal(one[1], got[1][s]) and torch.equal(one[2], got[2][s])
+            model = batched_walk(*(t.cpu().numpy() for t in (
+                pf[sl], w1[sl], w2[sl], h12[sl], nbuf[s * nb:(s + 1) * nb], ca[s], ct[s])), NOW, mc)
+            assert counts[s].tolist() == [model[3], model[4]]
 
 
 def test_decode_captures_on_card_equals_cpu(cuda, monkeypatch):
