@@ -14,7 +14,14 @@ drives two paths over a synthetic dense capture, checking what comes out:
     dispatch-ahead 3 (kernels K1 gather_windows and K2 resolve_words);
   * the multi-capture decode (decode_captures) of 128 captures of 4-16
     buffers, 4 buffers of each per round: one 512-buffer dispatch per round
-    (kernels K1 and K3 resolve_words_streams).
+    (kernels K1 and K3 resolve_words_streams);
+  * the CLI's hub path (cli.main in this process, DemodPipeline.run_device
+    and the message hub; kernels K1 and K2): the plain verbose display over
+    the first group, checked against the --raw output, the planted frames,
+    --onlyaddr and a `python -m dump1090_tpu_torch` subprocess; the first
+    64 buffers in three modes on the card against --device cpu; and the
+    network services on loopback (raw out, raw in, SBS, /data.json) over
+    the first 64 buffers, on the card against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -36,6 +43,7 @@ import collections
 import contextlib
 import io
 import json
+import socket
 import subprocess
 import sys
 import tempfile
@@ -530,6 +538,263 @@ def sustained(xg: torch.Tensor, shapes: dict, n_groups: int) -> float:
     return n_groups * xg.shape[0] * xg.shape[1] * BLOCK_SAMPLES / dt / 1e6
 
 
+def run_cli(argv: list, out: Path) -> float:
+    """cli.main(argv) in this process, under the frozen clock, with stdout
+    written to `out`, so the kernels' launch counts see its run.  Returns
+    its wall time in seconds."""
+    from dump1090_tpu_torch import cli
+
+    with frozen_clock(), open(out, "w") as fh, contextlib.redirect_stdout(fh):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) returned {rc}")
+    return seconds
+
+
+def verbose_cli_phase(first: Path, raw_want: bytes, planted: list, n_blocks: int,
+                      tmp: Path) -> dict:
+    """The CLI's plain (verbose) mode at its file defaults over the first
+    group, on the card, counted: its `*hex;` lines must equal the --raw
+    output, its text the display of the messages the hub was given, every
+    clean planted frame's block must be there in order, --onlyaddr must
+    give the crcok messages' addresses, and a `python -m dump1090_tpu_torch`
+    subprocess with no --device the same bytes.  Host time: the message
+    decode (messages_from_device_arrays) and the hub (use_message); device
+    time: CUDA events around each dispatch (marks=)."""
+    from dump1090_tpu_torch.constants import BLOCK_SAMPLES
+    from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.models.decoder import DecoderConfig, IcaoCache, decode_message
+    from dump1090_tpu_torch.models.hub import MessageHub
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.utils.display import display_message
+
+    decode_s, hub_s, n_msgs, shown, dispatches = [0.0], [0.0], [0], [], []
+    real_dispatch = pl.demod_resolve_group
+    real_decode, real_use = pl.messages_from_device_arrays, MessageHub.use_message
+
+    def dispatch(*a, **k):
+        marks = []
+        dispatches.append(marks)
+        return real_dispatch(*a, marks=marks, **k)
+
+    def decode(*a):
+        t0 = time.perf_counter()
+        out = real_decode(*a)
+        decode_s[0] += time.perf_counter() - t0
+        n_msgs[0] += len(out)
+        return out
+
+    def use(self, mm):
+        t0 = time.perf_counter()
+        real_use(self, mm)
+        hub_s[0] += time.perf_counter() - t0
+        if mm.crcok:
+            shown.append(mm)
+
+    verbose = tmp / "verbose.txt"
+    pl.demod_resolve_group, pl.messages_from_device_arrays = dispatch, decode
+    MessageHub.use_message = use
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        wall = run_cli(["--ifile", str(first)], verbose)
+        launches = dict(_cuda.launches)
+    finally:
+        pl.demod_resolve_group, pl.messages_from_device_arrays = real_dispatch, real_decode
+        MessageHub.use_message = real_use
+    # device time of each dispatch (a replayed group counts twice)
+    device_ms = [m[0][1].elapsed_time(m[-1][1]) for m in dispatches]
+    text = verbose.read_text()
+    hex_lines = "".join(ln + "\n" for ln in text.splitlines() if ln.startswith("*"))
+    if hex_lines.encode() != raw_want:
+        raise AssertionError("the verbose output's *hex; lines differ from the --raw output")
+    if text != "".join(display_message(m) + "\n" for m in shown):
+        raise AssertionError("the verbose output differs from the display of the hub's messages")
+    clean = collections.defaultdict(list)
+    for blk, _, frame, nflip in planted:
+        if nflip == 0:
+            clean[blk].append(frame)
+    cache, cfg, blocks_text = IcaoCache(clock=lambda: NOW), DecoderConfig(), {}
+    pos = checked = 0
+    for b in range(n_blocks):
+        for frame in clean[b % 16]:
+            if frame not in blocks_text:
+                blocks_text[frame] = display_message(decode_message(frame, cache, cfg)) + "\n"
+            i = text.find(blocks_text[frame], pos)
+            if i < 0:
+                raise AssertionError("a clean planted frame's verbose block is missing or out of order")
+            pos = i + len(blocks_text[frame])
+            checked += 1
+
+    onlyaddr_s = run_cli(["--ifile", str(first), "--onlyaddr"], tmp / "onlyaddr.txt")
+    if (tmp / "onlyaddr.txt").read_text() != "".join(
+            f"{m.aa1:02x}{m.aa2:02x}{m.aa3:02x}\n" for m in shown):
+        raise AssertionError("--onlyaddr differs from the crcok messages' addresses")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--ifile", str(first)],
+                       cwd=REPO, capture_output=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout != text.encode():
+        raise AssertionError(f"the CLI subprocess differs (rc {r.returncode}): "
+                             f"{r.stderr.decode()[-2000:]}")
+    samples = n_blocks * BLOCK_SAMPLES
+    host = decode_s[0] + hub_s[0]
+    emit({"phase": "verbose_cli", "buffers": n_blocks, "samples": samples,
+          "messages": n_msgs[0], "printed_blocks": len(shown), "stdout_bytes": len(text),
+          "raw_lines_equal": True, "display_equal": True, "planted_checked": checked,
+          "clean_planted_in_order": True, "onlyaddr_equal": True, "subprocess_equal": True,
+          "wall_s": wall, "msps": samples / wall / 1e6, "messages_per_s": n_msgs[0] / wall,
+          "host_decode_s": decode_s[0], "hub_s": hub_s[0], "host_share": host / wall,
+          "dispatches": len(device_ms), "device_ms_per_dispatch": device_ms,
+          "device_share": sum(device_ms) / 1e3 / wall,
+          "onlyaddr_s": onlyaddr_s, "subprocess_s": sub_s, "launches": launches})
+    return launches
+
+
+def verbose_vs_cpu_phase(first64: Path, tmp: Path) -> tuple:
+    """The first 64 buffers in the plain mode, --onlyaddr and --raw
+    --no-crc-check through cli.main on the card (counted) and with --device
+    cpu: stdout byte-equal.  Returns the card runs' launches and the plain
+    mode's output."""
+    from dump1090_tpu_torch.ops import _cuda
+
+    modes = {"verbose": [], "onlyaddr": ["--onlyaddr"], "raw_nocrc": ["--raw", "--no-crc-check"]}
+    outs, secs, launches = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        if d == "cuda":
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+        for name, flags in modes.items():
+            path = tmp / f"{name}_{d}.txt"
+            secs[f"{name}_{d}_s"] = run_cli(["--ifile", str(first64), "--device", d, *flags], path)
+            outs[(d, name)] = path.read_bytes()
+        if d == "cuda":
+            launches = dict(_cuda.launches)
+    for name in modes:
+        if outs[("cuda", name)] != outs[("cpu", name)]:
+            raise AssertionError(f"cli {name} on the card differs from --device cpu")
+        if not outs[("cuda", name)]:
+            raise AssertionError(f"cli {name} printed nothing")
+    emit({"phase": "verbose_vs_cpu", "buffers": 64, "equal": True,
+          "bytes": {n: len(outs[("cuda", n)]) for n in modes}, **secs, "launches": launches})
+    return launches, outs[("cuda", "verbose")]
+
+
+def _free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _read_until(sock: socket.socket, suffix: bytes) -> bytes:
+    got = b""
+    while not got.endswith(suffix):
+        chunk = sock.recv(1 << 16)
+        if not chunk:
+            raise AssertionError("a network client was closed early")
+        got += chunk
+    return got
+
+
+def net_phase(first64: Path, verbose64: bytes, dev: torch.device) -> dict:
+    """The network services in this process on free loopback ports, wired
+    as the CLI wires them (cli.network_services) to a --raw --net hub:
+    one raw-out client, one SBS client and one GET /data.json (tracking on)
+    before run_device decodes the first 64 buffers, on the card (counted)
+    and on the CPU; then one `*hex;` line (a DF11 all-call of an address no
+    frame uses) into raw input.  The raw-out bytes must be the uppercase
+    `*HEX;` lines of the crcok messages and then that line; the SBS bytes
+    and a /data.json fetched after must equal the CPU run's."""
+    import os
+    import threading
+    import urllib.request
+
+    from dump1090_tpu_torch import cli
+    from dump1090_tpu_torch.models.decoder import DecoderConfig
+    from dump1090_tpu_torch.models.hub import HubConfig, MessageHub
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.models.tracker import AircraftTracker
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.crc import compute_crc
+
+    probe = bytearray(b"\x5d\xab\xcd\xef\x00\x00\x00")
+    probe[4:7] = compute_crc(np.frombuffer(bytes(probe), np.uint8), 56).to_bytes(3, "big")
+    probe_line = b"*" + bytes(probe).hex().encode() + b";\n"
+    probe_sbs = b"MSG,8,,,ABCDEF,,,,,,,,,,,,,,,,,\n"
+    want_raw = b"".join(ln.upper() + b"\n" for ln in verbose64.splitlines()
+                        if ln.startswith(b"*")) + probe_line.upper()
+    runs, launches = {}, {}
+    for d in (dev, "cpu"):
+        ro, ri, http, sbs = _free_ports(4)
+        o = cli.parse_args(["--ifile", str(first64), "--raw", "--net", "--net-ro-port", str(ro),
+                            "--net-ri-port", str(ri), "--net-http-port", str(http),
+                            "--net-sbs-port", str(sbs)])
+        state_lock = threading.RLock()
+        with frozen_clock(), open(os.devnull, "w") as devnull:
+            p = DemodPipeline(PipelineConfig(batch_buffers=64, dispatch_groups=8), device=d,
+                              lock=state_lock)
+            hub = MessageHub(HubConfig(raw=True, net=True), AircraftTracker(), p.stats,
+                             out=devnull)
+            net = cli.network_services(o, hub, p.cache, DecoderConfig(), state_lock)
+            net.start()
+            try:
+                raw_c = socket.create_connection(("127.0.0.1", ro), timeout=30)
+                sbs_c = socket.create_connection(("127.0.0.1", sbs), timeout=30)
+                url = f"http://127.0.0.1:{http}/data.json"
+                if urllib.request.urlopen(url, timeout=30).read() != b"[\n]\n":
+                    raise AssertionError("/data.json before the decode is not empty")
+                deadline = time.monotonic() + 30  # time.time is frozen here
+                while (p.stats.sbs_connections, p.stats.http_requests) != (1, 1):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the SBS client or the HTTP request was not counted")
+                    time.sleep(0.01)
+
+                def on_message(mm):
+                    with state_lock:
+                        hub.use_message(mm)
+
+                if d != "cpu":
+                    torch.cuda.synchronize()
+                    _cuda.reset_launches()
+                t0 = time.perf_counter()
+                with open(first64, "rb") as f:
+                    p.run_device(f, on_message)
+                if d != "cpu":
+                    torch.cuda.synchronize()
+                    launches = dict(_cuda.launches)
+                wall = time.perf_counter() - t0
+                with socket.create_connection(("127.0.0.1", ri), timeout=30) as inp:
+                    inp.sendall(probe_line)
+                    raw = _read_until(raw_c, probe_line.upper())
+                    sbs_b = _read_until(sbs_c, probe_sbs)
+                js = urllib.request.urlopen(url, timeout=30).read()
+                raw_c.close()
+                sbs_c.close()
+            finally:
+                net.stop()
+        runs[str(d)] = (raw, sbs_b, js, wall)
+    card, cpu = runs[str(dev)], runs["cpu"]
+    if card[0] != want_raw:
+        raise AssertionError("raw-out differs from the crcok messages' uppercase lines")
+    if card[:3] != cpu[:3]:
+        raise AssertionError("the SBS bytes or /data.json on the card differ from the CPU run")
+    if card[2].count(b'"hex"') == 0 or card[1].count(b"MSG,3,") == 0:
+        raise AssertionError("tracking never decoded a position")
+    emit({"phase": "net", "buffers": 64, "raw_equal": True, "sbs_equal_cpu": True,
+          "json_equal_cpu": True, "raw_in_echoed": True, "raw_lines": card[0].count(b"\n"),
+          "sbs_lines": card[1].count(b"\n"), "json_aircraft": card[2].count(b'"hex"'),
+          "cuda_s": card[3], "cpu_s": cpu[3], "launches": launches})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -691,10 +956,25 @@ def main() -> int:
     captures_vs_cpu_phase(blocks, planted, dev)
     captures_launches, solo_launches = captures_e2e_phase(blocks, planted, dev)
 
+    # ---- the CLI's hub path: verbose display, tracker, net services ---------
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        first = Path(tmp) / "first_group.bin"
+        first.write_bytes(data[: group_blocks * 262144])
+        first64 = Path(tmp) / "first_64.bin"
+        first64.write_bytes(data[: 64 * 262144])
+        verbose_launches = verbose_cli_phase(first, runs["cuda"][0], planted, group_blocks,
+                                             Path(tmp))
+        first.unlink()
+        vs_cpu_launches, verbose64 = verbose_vs_cpu_phase(first64, Path(tmp))
+        net_launches = net_phase(first64, verbose64, dev)
+
     paths = {
         "file_decode": (launches, ("gather_windows", "resolve_words")),
         "decode_captures": (captures_launches, ("gather_windows", "resolve_words_streams")),
         "decode_capture": (solo_launches, ("gather_windows", "resolve_words")),
+        "verbose_cli": (verbose_launches, ("gather_windows", "resolve_words")),
+        "verbose_vs_cpu": (vs_cpu_launches, ("gather_windows", "resolve_words")),
+        "net": (net_launches, ("gather_windows", "resolve_words")),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():

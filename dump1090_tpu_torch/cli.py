@@ -1,13 +1,20 @@
-"""Command line interface of the port: the file decode with the resolver on
-the device, `--raw` and `--stats` (port of the fast device path of
-dump1090_tpu/cli.py).
+"""Command line interface of the port (a port of dump1090_tpu/cli.py): the
+file decode with the demodulator and the resolver on the device, and every
+output of the JAX package's CLI behind it.
 
-Flags keep the reference's and the JAX package's spellings and semantics.
+Behavioral contract: main/showHelp/argv loop, dump1090.c:2787-3012.  Flags
+keep the reference's and the JAX package's spellings and semantics.  Pure
+`--raw` or `--stats` with no other consumer takes the bulk device path
+(DemodPipeline.stream_raw_device); every other run (the verbose display,
+`--onlyaddr`, `--no-crc-check`, `--interactive`, `--net`) takes
+DemodPipeline.run_device and the message hub (tracker, display, SBS and
+raw TCP sinks).  `--net-only` does no device work.
+
 `--device cuda|cpu` takes the place of `--tpu-backend`; the default is
 cuda, and without a card the CLI stops with an error rather than decoding
-on the CPU.  Every other flag of the JAX package's CLI, and any run that
-would need its verbose (message display) output, stops with a "not yet
-ported" error: the port never gives a different output without saying so.
+on the CPU.  `--debug`, live RTL-SDR input (no `--ifile`) and the other
+options of the JAX package that are not ported stop with a "not yet ported"
+error: the port never gives a different output without saying so.
 """
 
 from __future__ import annotations
@@ -15,12 +22,28 @@ from __future__ import annotations
 import sys
 import time
 
+from .constants import INTERACTIVE_ROWS, INTERACTIVE_TTL
+
 HELP = """\
 --ifile <filename>       Read data from file (use '-' for stdin).
+--loop                   With --ifile, read the same file in a loop.
+--interactive            Interactive mode refreshing data on screen.
+--interactive-rows <num> Max number of rows in interactive mode (default: 15).
+--interactive-ttl <sec>  Remove from list if idle for <sec> (default: 60).
 --raw                    Show only messages hex values.
+--net                    Enable networking.
+--net-only               Enable just networking, no RTL device or file used.
+--net-ro-port <port>     TCP listening port for raw output (default: 30002).
+--net-ri-port <port>     TCP listening port for raw input (default: 30001).
+--net-http-port <port>   HTTP server port (default: 8080).
+--net-sbs-port <port>    TCP listening port for BaseStation format output (default: 30003).
 --no-fix                 Disable single-bits error correction using CRC.
+--no-crc-check           Disable messages with broken CRC (discouraged).
 --aggressive             More CPU for more messages (two bits fixes, ...).
 --stats                  With --ifile print stats at exit. No other output.
+--onlyaddr               Show only ICAO addresses (testing purposes).
+--metric                 Use metric units (meters, km/h, ...).
+--snip <level>           Strip IQ file removing samples < level.
 --help                   Show this help.
 
 --tpu-max-candidates <n> Max preamble candidates per block (default: 256).
@@ -28,38 +51,65 @@ HELP = """\
                          for stdin).
 --tpu-dispatch-ahead <n> Dispatch groups held in flight before the oldest
                          is fetched (0 = auto: 3 for seekable files, 1
-                         otherwise; identical output).
+                         for stdin, looped or throttled input; identical
+                         output).
+--tpu-state-load <file>  Restore tracker/ICAO-cache/stats snapshot at start.
+--tpu-state-save <file>  Save a state snapshot on exit (checkpoint/resume).
 --device <name>          cuda (default) or cpu.
 
-Not yet ported to this package (use python -m dump1090_tpu): the verbose
-display, --interactive, --net*, --onlyaddr, --no-crc-check, --debug,
---snip, --loop, live RTL-SDR input and the other --tpu-* options.
+Not yet ported to this package (use python -m dump1090_tpu): --debug, live
+RTL-SDR input (no --ifile) and its options, and --tpu-shard-time,
+--tpu-front, --tpu-preload, --tpu-profile, --tpu-backend and
+--tpu-device-resolve.
 """
 
-# the JAX package's CLI flags that take a value and are not ported here
+# the JAX package's CLI flags that are not ported here
 _UNPORTED_WITH_VALUE = {
-    "--device-index", "--gain", "--freq", "--ppm", "--interactive-rows",
-    "--interactive-ttl", "--net-ro-port", "--net-ri-port", "--net-http-port",
-    "--net-sbs-port", "--snip", "--debug", "--tpu-profile", "--tpu-state-load",
-    "--tpu-state-save", "--tpu-backend", "--tpu-shard-time", "--tpu-front",
-    "--tpu-preload", "--tpu-device-resolve",
+    "--device-index", "--gain", "--freq", "--ppm", "--debug", "--tpu-profile",
+    "--tpu-backend", "--tpu-shard-time", "--tpu-front", "--tpu-preload",
+    "--tpu-device-resolve",
 }
-_UNPORTED = {
-    "--enable-agc", "--loop", "--interactive", "--net", "--net-only",
-    "--no-crc-check", "--onlyaddr", "--metric",
-}
+_UNPORTED = {"--enable-agc"}
+
+
+def get_term_rows() -> int:
+    """Terminal row count for the interactive TUI (getTermRows,
+    dump1090.c:2781-2785: TIOCGWINSZ on stdout), or the 15-row default when
+    stdout is not a terminal."""
+    import os
+
+    try:
+        return os.get_terminal_size(sys.stdout.fileno()).lines
+    except (OSError, ValueError, AttributeError):
+        return INTERACTIVE_ROWS
 
 
 class Options:
     def __init__(self):
         self.filename: str | None = None
+        self.loop = False
         self.fix_errors = True
+        self.check_crc = True
         self.aggressive = False
         self.raw = False
         self.stats = False
+        self.onlyaddr = False
+        self.metric = False
+        self.net = False
+        self.net_only = False
+        self.ro_port = 30002
+        self.ri_port = 30001
+        self.http_port = 8080
+        self.sbs_port = 30003
+        self.interactive = False
+        self.interactive_rows = get_term_rows()
+        self.interactive_ttl = INTERACTIVE_TTL
+        self.snip: int | None = None
         self.max_candidates = 256
         self.batch: int | None = None   # buffers per batch
         self.dispatch_ahead = 0
+        self.state_load: str | None = None
+        self.state_save: str | None = None
         self.device = "cuda"
 
 
@@ -93,20 +143,53 @@ def parse_args(argv: list[str]) -> Options:
 
         if arg == "--ifile" and more:
             o.filename = nxt()
+        elif arg == "--loop":
+            o.loop = True
         elif arg == "--no-fix":
             o.fix_errors = False
+        elif arg == "--no-crc-check":
+            o.check_crc = False
         elif arg == "--raw":
             o.raw = True
+        elif arg == "--net":
+            o.net = True
+        elif arg == "--net-only":
+            o.net = True
+            o.net_only = True
+        elif arg == "--net-ro-port" and more:
+            o.ro_port = _c_atoi(nxt())
+        elif arg == "--net-ri-port" and more:
+            o.ri_port = _c_atoi(nxt())
+        elif arg == "--net-http-port" and more:
+            o.http_port = _c_atoi(nxt())
+        elif arg == "--net-sbs-port" and more:
+            o.sbs_port = _c_atoi(nxt())
+        elif arg == "--onlyaddr":
+            o.onlyaddr = True
+        elif arg == "--metric":
+            o.metric = True
         elif arg == "--aggressive":
             o.aggressive = True
+        elif arg == "--interactive":
+            o.interactive = True
+        elif arg == "--interactive-rows" and more:
+            o.interactive_rows = _c_atoi(nxt())
+        elif arg == "--interactive-ttl" and more:
+            o.interactive_ttl = _c_atoi(nxt())
         elif arg == "--stats":
             o.stats = True
+        elif arg == "--snip" and more:
+            o.snip = _c_atoi(nxt())
         elif arg == "--tpu-max-candidates" and more:
             o.max_candidates = int(nxt())
         elif arg == "--tpu-batch" and more:
             o.batch = int(nxt())
         elif arg == "--tpu-dispatch-ahead" and more:
             o.dispatch_ahead = _c_atoi(nxt())
+        elif arg == "--tpu-state-load" and more:
+            o.state_load = nxt()
+        elif arg == "--tpu-state-save" and more:
+            o.state_save = nxt()
         elif arg == "--device" and more:
             o.device = nxt()
             if o.device not in ("cuda", "cpu"):
@@ -124,11 +207,30 @@ def parse_args(argv: list[str]) -> Options:
             sys.stdout.write(HELP)
             raise SystemExit(1)
         j += 1
-    if o.filename is None:
+    if o.filename is None and not o.net_only and o.snip is None:
         raise _not_ported("live RTL-SDR input (no --ifile)")
-    if not (o.raw or o.stats):
-        raise _not_ported("the verbose message display (give --raw or --stats)")
     return o
+
+
+def snip_mode(level: int) -> None:
+    """IQ thinning filter: drop runs of >32 consecutive low samples
+    (snipMode, dump1090.c:2226-2244)."""
+    stdin = sys.stdin.buffer
+    stdout = sys.stdout.buffer
+    c = 0
+    while True:
+        pair = stdin.read(2)
+        if len(pair) < 2:
+            break
+        i, q = pair[0], pair[1]
+        if abs(i - 127) < level and abs(q - 127) < level:
+            c += 1
+            if c > 8 * 4:
+                continue
+        else:
+            c = 0
+        stdout.write(pair)
+    stdout.flush()
 
 
 def print_stats(stats) -> None:
@@ -148,68 +250,254 @@ def main(argv: list[str] | None = None) -> int:
     o = parse_args(sys.argv[1:] if argv is None else argv)
 
     # C process semantics on a closed stdout pipe: die of SIGPIPE, so
-    # `... --raw | head` prints no traceback and stops decoding
-    import signal
+    # `... --raw | head` prints no traceback and stops decoding (the
+    # reference ignores SIGPIPE in net mode only, dump1090.c:2294)
+    if not o.net:
+        import signal
+
+        try:
+            signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+        except (ValueError, OSError, AttributeError):
+            pass  # non-main thread / non-POSIX: keep Python's default
+
+    if o.snip is not None:
+        snip_mode(o.snip)
+        return 0
+
+    import threading
+
+    from .models.decoder import DecoderConfig, DecoderStats, IcaoCache
+    from .models.hub import HubConfig, MessageHub
+    from .models.tracker import AircraftTracker
+
+    dcfg = DecoderConfig(fix_errors=o.fix_errors, aggressive=o.aggressive)
+    hub_cfg = HubConfig(
+        raw=o.raw, onlyaddr=o.onlyaddr, check_crc=o.check_crc, interactive=o.interactive,
+        net=o.net, stats_only=o.stats, metric=o.metric,
+    )
+    tracker = AircraftTracker(interactive_ttl=o.interactive_ttl)
+
+    # Decode state (ICAO cache, stats, tracker, stdout) is mutated both by
+    # the file decode and by raw network input arriving on the asyncio
+    # thread; the reference is single-threaded (it polls its sockets
+    # between buffers, dump1090.c:2831-2847), so the two are serialized.
+    # Reentrant: the pipeline holds it around each batch's emits, and the
+    # emit callback takes it again around hub.use_message.
+    state_lock = threading.RLock()
+
+    # the pipeline owns the cache and the stats in file mode; in net-only
+    # mode there is no pipeline and no device work
+    pipeline = None
+    if o.net_only:
+        stats, cache = DecoderStats(), IcaoCache()
+    else:
+        from .models.pipeline import DemodPipeline, PipelineConfig
+
+        batch = o.batch if o.batch is not None else (1 if o.filename == "-" else 64)
+        try:
+            pipeline = DemodPipeline(
+                PipelineConfig(
+                    decoder=dcfg, max_candidates=o.max_candidates, loop=o.loop,
+                    batch_buffers=1 if o.interactive else batch,
+                    # the reference slows --ifile playback in interactive
+                    # mode (usleep(5000) per buffer, dump1090.c:471-477)
+                    throttle_s=0.005 if o.interactive else 0.0,
+                    # 8 batches per dispatch group for files, 1 for stdin
+                    # and interactive feeds
+                    dispatch_groups=1 if o.interactive or o.filename == "-" else 8,
+                    dispatch_ahead=o.dispatch_ahead,
+                ),
+                device=o.device, lock=state_lock,
+            )
+        except RuntimeError as e:
+            sys.stderr.write(f"dump1090_tpu_torch: {e}\n")
+            return 1
+        stats, cache = pipeline.stats, pipeline.cache
+
+    hub = MessageHub(hub_cfg, tracker, stats)
+
+    # TUI redraw guard: a plain lock held while the main thread mutates the
+    # tracker, so the SIGWINCH handler (which runs between bytecodes of the
+    # same thread) redraws at once only when the tracker is consistent, and
+    # otherwise leaves the new row count to the next refresh
+    tui_guard = threading.Lock()
+    if o.interactive:
+        _install_sigwinch(o, tracker, state_lock, tui_guard)
+
+    if o.state_load:
+        from .utils import state as state_mod
+
+        state_mod.load(o.state_load, tracker, cache, stats)
+
+    net = None
+    if o.net:
+        net = network_services(o, hub, cache, dcfg, state_lock)
+        try:
+            net.start()
+        except OSError:
+            # reference order: main announces net-only mode (dump1090.c:2945)
+            # before modesInitNet fails the bind (:2282-2289), both on stderr
+            if o.net_only:
+                sys.stderr.write("Net-only mode, no RTL device or file open.\n")
+            sys.stderr.write(net.bind_error_message() + "\n")
+            return 1
 
     try:
-        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
-    except (ValueError, OSError, AttributeError):
-        pass  # non-main thread / non-POSIX: keep Python's default
+        if o.net_only:
+            sys.stderr.write("Net-only mode, no RTL device or file open.\n")
+            last_refresh = 0.0
+            while True:
+                time.sleep(0.1)
+                if not o.interactive:
+                    with state_lock:
+                        tracker.remove_stale()
+                # TUI refresh gated at 250 ms like backgroundTasks
+                # (MODES_INTERACTIVE_REFRESH_TIME, dump1090.c:89, 2839-2846);
+                # the refresh itself evicts stale aircraft under the lock
+                elif time.time() - last_refresh > 0.25:
+                    _interactive_refresh(tracker, o, state_lock, tui_guard)
+                    last_refresh = time.time()
 
-    from .models.decoder import DecoderConfig
-    from .models.pipeline import DemodPipeline, PipelineConfig
+        from .io.sources import open_iq_source
 
-    batch = o.batch if o.batch is not None else (1 if o.filename == "-" else 64)
-    try:
-        pipeline = DemodPipeline(
-            PipelineConfig(
-                decoder=DecoderConfig(fix_errors=o.fix_errors, aggressive=o.aggressive),
-                max_candidates=o.max_candidates,
-                batch_buffers=batch,
-                # 8 batches per dispatch group for files, 1 for stdin
-                dispatch_groups=1 if o.filename == "-" else 8,
-                dispatch_ahead=o.dispatch_ahead,
-            ),
-            device=o.device,
-        )
-    except RuntimeError as e:
-        sys.stderr.write(f"dump1090_tpu_torch: {e}\n")
-        return 1
+        try:
+            stream = open_iq_source(o.filename)
+        except OSError as e:
+            # reference: perror("Opening data file") + exit(1), dump1090.c:2952-2953
+            print(f"Opening data file: {e.strerror}", file=sys.stderr)
+            return 1
+        last_refresh = [0.0]
+        t_start = time.time()
 
-    from .io.sources import open_iq_source
+        def on_message(mm) -> None:
+            # the tui_guard marks the tracker-mutating region so a SIGWINCH
+            # arriving mid-update defers its redraw
+            with state_lock, tui_guard:
+                hub.use_message(mm)
+            if o.interactive:
+                now = time.time()
+                if now - last_refresh[0] > 0.25:
+                    _interactive_refresh(tracker, o, state_lock, tui_guard)
+                    last_refresh[0] = now
 
-    try:
-        stream = open_iq_source(o.filename)
-    except OSError as e:
-        # reference: perror("Opening data file") + exit(1), dump1090.c:2952-2953
-        print(f"Opening data file: {e.strerror}", file=sys.stderr)
-        return 1
-    t_start = time.time()
-    try:
-        w = sys.stdout.buffer
-        for line in pipeline.stream_raw_device(stream):
-            # --stats mode emits nothing but the counters
-            if line and o.raw and not o.stats:
-                w.write(line)
-                w.flush()
+        # pure --raw / --stats with no other consumer: the bulk device path,
+        # which formats hex lines and builds no per-message objects
+        solo = not o.interactive and not o.net and not o.onlyaddr and o.check_crc
+        try:
+            if solo and (o.raw or o.stats):
+                w = sys.stdout.buffer
+                for line in pipeline.stream_raw_device(stream):
+                    # --stats mode emits nothing but the counters
+                    if line and o.raw and not o.stats:
+                        w.write(line)
+                        w.flush()
+            else:
+                # the full-fidelity hub path (verbose, tracker, SBS, net)
+                # with the sequential resolve on the device
+                pipeline.run_device(stream, on_message)
+            if o.interactive:
+                # the final state stays visible
+                _interactive_refresh(tracker, o, state_lock, tui_guard)
+        finally:
+            if o.stats:
+                # throughput meter on stderr keeps stdout byte-exact
+                dt = max(time.time() - t_start, 1e-9)
+                ns = pipeline.samples_in * 1.0
+                sys.stderr.write(
+                    f"# {ns/1e6:.1f} Msamples in {dt:.2f}s = "
+                    f"{ns/dt/1e6:.1f} Msamples/s ({ns/dt/2e6:.0f}x realtime) "
+                    f"on {pipeline.device}\n"
+                )
+            if stream is not sys.stdin.buffer:
+                stream.close()
     except KeyboardInterrupt:
         return 0
     finally:
-        if o.stats:
-            # throughput meter on stderr keeps stdout byte-exact
-            dt = max(time.time() - t_start, 1e-9)
-            ns = pipeline.samples_in * 1.0
-            sys.stderr.write(
-                f"# {ns/1e6:.1f} Msamples in {dt:.2f}s = "
-                f"{ns/dt/1e6:.1f} Msamples/s ({ns/dt/2e6:.0f}x realtime) "
-                f"on {pipeline.device}\n"
-            )
-        if stream is not sys.stdin.buffer:
-            stream.close()
+        if net:
+            net.stop()
+        if o.state_save:
+            from .utils import state as state_mod
+
+            state_mod.save(o.state_save, tracker, cache, stats)
 
     if o.stats:
-        print_stats(pipeline.stats)
+        print_stats(stats)
     return 0
+
+
+def network_services(o: Options, hub, cache, dcfg, state_lock):
+    """The CLI's network services wired to the message hub, not started:
+    each raw input line decoded against the host ICAO cache into the hub
+    under the state lock, /data.json from the hub's tracker, the HTTP and
+    SBS client counters in the hub's stats, and the hub's raw and SBS
+    sinks pointed at the broadcasts."""
+    from .io.net import NetConfig, NetworkServices
+    from .models.decoder import decode_hex_message
+    from .utils import display as disp
+
+    stats = hub.stats
+
+    def on_raw_line(line: str) -> None:
+        with state_lock:
+            mm = decode_hex_message(line, cache, dcfg, stats)
+            if mm is not None:
+                hub.use_message(mm)
+
+    def bump(attr: str) -> None:
+        setattr(stats, attr, getattr(stats, attr) + 1)
+
+    net = NetworkServices(
+        NetConfig(ro_port=o.ro_port, ri_port=o.ri_port, http_port=o.http_port,
+                  sbs_port=o.sbs_port),
+        on_raw_line=on_raw_line,
+        data_json=lambda: disp.aircraft_json(hub.tracker, o.metric),
+        on_http_request=lambda: bump("http_requests"),
+        on_sbs_connect=lambda: bump("sbs_connections"),
+    )
+    hub.raw_sink = net.broadcast_raw
+    hub.sbs_sink = net.broadcast_sbs
+    return net
+
+
+def _install_sigwinch(o, tracker, state_lock, tui_guard) -> None:
+    """Re-read the terminal height and redraw on resize (sigWinchCallback,
+    dump1090.c:2772-2777).  The handler runs between arbitrary bytecodes on
+    the main thread, so it redraws only when the tracker is not mid-mutation
+    (tui_guard free); otherwise the new row count takes effect at the next
+    refresh."""
+    import signal
+
+    def _winch(sig, frame):
+        o.interactive_rows = get_term_rows()
+        if tui_guard.acquire(blocking=False):
+            try:
+                _interactive_refresh(tracker, o, state_lock, None)
+            finally:
+                tui_guard.release()
+
+    try:
+        signal.signal(signal.SIGWINCH, _winch)
+    except (ValueError, AttributeError):
+        pass  # non-main thread or platform without SIGWINCH
+
+
+def _interactive_refresh(tracker, o, state_lock=None, tui_guard=None) -> None:
+    """Evict stale aircraft and redraw the table, under the state lock (the
+    asyncio net thread mutates the same tracker) and flagged by tui_guard
+    so a concurrent SIGWINCH defers its own redraw."""
+    import contextlib
+    import shutil
+
+    from .utils import display as disp
+
+    with (state_lock or contextlib.nullcontext()), (tui_guard or contextlib.nullcontext()):
+        tracker.remove_stale()
+        rows = o.interactive_rows or shutil.get_terminal_size().lines
+        now = int(time.time())
+        screen = disp.interactive_screen(tracker, rows=rows, metric=o.metric, now=now,
+                                         spinner_t=now)
+    sys.stdout.write(screen)
+    sys.stdout.flush()
 
 
 if __name__ == "__main__":

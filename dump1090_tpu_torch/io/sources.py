@@ -18,15 +18,13 @@ is the *first* buffer, which the decoder is already blocked waiting for
 (dump1090.c:2969-2971).  We reproduce that: the padded EOF buffer is yielded
 only when it is the first.  (For a reader slower than the decoder — a
 trickling stdin pipe — the reference would racily decode the final buffer.)
-
---loop and the interactive playback brake are not ported yet, so iq_buffers
-has no loop or throttle options.
 """
 
 from __future__ import annotations
 
 import io
 import sys
+import time
 from typing import BinaryIO, Iterator
 
 import numpy as np
@@ -37,18 +35,29 @@ CARRY_BYTES = CARRY_SAMPLES * 2          # 476
 BUF_BYTES = DATA_LEN_BYTES + CARRY_BYTES  # 262620
 
 
-def iq_buffers(stream: BinaryIO) -> Iterator[np.ndarray]:
+def iq_buffers(stream: BinaryIO, loop: bool = False, throttle_s: float = 0.0) -> Iterator[np.ndarray]:
     """Yield the uint8[BUF_BYTES] buffers the reference's decode loop actually
-    decodes (readDataFromFile, dump1090.c:460-514; EOF race, see module doc)."""
+    decodes (readDataFromFile, dump1090.c:460-514; EOF race, see module doc).
+
+    loop: at EOF of a seekable stream, seek to 0 and read on (--loop; the
+    stream then never ends).  throttle_s: sleep before each fill, the
+    reference's interactive-mode playback brake (usleep(5000) per 65.5 ms
+    buffer, dump1090.c:471-477)."""
+    seekable = loop and stream.seekable()
     data = np.full(BUF_BYTES, 127, dtype=np.uint8)
     first = True
     while True:
+        if throttle_s > 0:
+            time.sleep(throttle_s)
         data[:CARRY_BYTES] = data[DATA_LEN_BYTES : DATA_LEN_BYTES + CARRY_BYTES]
         filled = 0
         hit_eof = False
         while filled < DATA_LEN_BYTES:
             chunk = stream.read(DATA_LEN_BYTES - filled)
             if not chunk:
+                if seekable:
+                    stream.seek(0)
+                    continue
                 hit_eof = True
                 break
             arr = np.frombuffer(chunk, dtype=np.uint8)

@@ -1,13 +1,13 @@
-"""Decode state, configuration, and the stateless field decode of messages
-(a copy of IcaoCache, DecoderStats, DecoderConfig, ModesMessage and the
-stateless half of dump1090_tpu/models/decoder.py).
+"""Decode state, configuration, and the field decode of messages (a copy
+of dump1090_tpu/models/decoder.py).
 
 Behavioral contract: decodeModesMessage and helpers, dump1090.c:896-1310.
-The device resolver makes every stateful decision (CRC fix, brute-force AP
-acceptance, DF11 IID, cache adds) and encodes it in each emitted message's
-meta word; what remains here is pure functions of the post-fix frame bytes.
-The stateful host decode (decode_message, brute_force_ap,
-decode_hex_message) belongs to the host-resolve path, not ported yet.
+On the device path the resolver makes every stateful decision (CRC fix,
+brute-force AP acceptance, DF11 IID, cache adds) and encodes it in each
+emitted message's meta word; message_from_device rebuilds the rest from the
+post-fix frame bytes.  decode_message is the stateful host decode of one
+frame against the host IcaoCache, used for `*<hex>;` lines that arrive on
+the raw network input (decode_hex_message).
 """
 
 from __future__ import annotations
@@ -18,7 +18,17 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..constants import AIS_CHARSET, ICAO_CACHE_LEN, LONG_MSG_BITS, LONG_MSG_BYTES, SHORT_MSG_BITS
+from ..constants import (
+    AIS_CHARSET,
+    DF11_IID_MAX_SYNDROME,
+    ICAO_CACHE_LEN,
+    ICAO_CACHE_TTL,
+    LONG_MSG_BITS,
+    LONG_MSG_BYTES,
+    MAX_BITERRORS,
+    SHORT_MSG_BITS,
+    message_bits_for_df,
+)
 from ..ops import crc as crc_ops
 from ..ops.resolve import META_CRCOK, META_ERRBIT_MASK, META_ERRBIT_SHIFT, META_LONG, META_PHASE
 
@@ -43,6 +53,16 @@ class IcaoCache:
         a = (((a >> 16) ^ a) * 0x45D9F3B) & 0xFFFFFFFF
         a = (a >> 16) ^ a
         return a & (ICAO_CACHE_LEN - 1)
+
+    def add(self, addr: int) -> None:
+        h = self.hash(addr)
+        self.addr[h] = addr
+        self.ts[h] = self.clock()
+
+    def recently_seen(self, addr: int) -> bool:
+        h = self.hash(addr)
+        a = int(self.addr[h])
+        return a != 0 and a == addr and self.clock() - int(self.ts[h]) <= ICAO_CACHE_TTL
 
 
 @dataclass
@@ -128,6 +148,23 @@ STAT_FIELDS = (
 class DecoderConfig:
     fix_errors: bool = True
     aggressive: bool = False
+
+
+def brute_force_ap(msg: np.ndarray, mm: ModesMessage, cache: IcaoCache) -> bool:
+    """Recover the ICAO address of Address/Parity frames by XORing the
+    computed CRC into the AP field; accept iff recently seen
+    (dump1090.c:942-983)."""
+    if mm.msgtype not in (0, 4, 5, 16, 20, 21, 24):
+        return False
+    lastbyte = mm.msgbits // 8 - 1
+    c = crc_ops.compute_crc(msg, mm.msgbits)
+    b0 = int(msg[lastbyte]) ^ (c & 0xFF)
+    b1 = int(msg[lastbyte - 1]) ^ ((c >> 8) & 0xFF)
+    b2 = int(msg[lastbyte - 2]) ^ ((c >> 16) & 0xFF)
+    if cache.recently_seen(b0 | (b1 << 8) | (b2 << 16)):
+        mm.aa1, mm.aa2, mm.aa3 = b2, b1, b0
+        return True
+    return False
 
 
 def decode_ac13_field(msg: np.ndarray) -> tuple[int, int]:
@@ -256,6 +293,86 @@ def _decode_extended_squitter(mm: ModesMessage, msg: np.ndarray) -> None:
         elif mm.mesub in (3, 4):
             mm.heading_is_valid = b[5] & (1 << 2)
             mm.heading = int((360.0 / 128) * (((b[5] & 3) << 5) | (b[6] >> 3)))
+
+
+def decode_message(
+    raw: np.ndarray | bytes,
+    cache: IcaoCache,
+    cfg: DecoderConfig,
+    stats: DecoderStats | None = None,
+) -> ModesMessage:
+    """Full field decode of a 56/112-bit frame (dump1090.c:1091-1310).
+
+    `raw` is up to 14 bytes; mutates nothing but the ICAO cache (and the
+    stats single/two-bit fix counters, mirroring the decode-path increments
+    at dump1090.c:1122-1126).
+    """
+    msg = np.zeros(LONG_MSG_BYTES, dtype=np.uint8)
+    raw = np.frombuffer(bytes(raw), dtype=np.uint8) if isinstance(raw, (bytes, bytearray)) \
+        else np.asarray(raw, dtype=np.uint8)
+    msg[: len(raw)] = raw[:LONG_MSG_BYTES]
+
+    mm = ModesMessage()
+    mm.msgtype = int(msg[0]) >> 3
+    mm.msgbits = message_bits_for_df(mm.msgtype)
+    mm.crc = crc_ops.checksum(msg, mm.msgbits)
+    mm.crcok = mm.crc == 0
+
+    if not mm.crcok and cfg.fix_errors and mm.msgtype in (11, 17, 18):
+        fixed = crc_ops.fix_bit_errors(msg, mm.msgbits, MAX_BITERRORS if cfg.aggressive else 1)
+        if fixed:
+            mm.crc = crc_ops.checksum(msg, mm.msgbits)
+            mm.crcok = mm.crc == 0
+            mm.errorbit = fixed[0]
+            if stats is not None:
+                if len(fixed) == 1:
+                    stats.single_bit_fix += 1
+                else:
+                    stats.two_bits_fix += 1
+
+    _decode_common_fields(mm, msg)
+
+    if mm.msgtype not in (11, 17, 18):
+        mm.crcok = brute_force_ap(msg, mm, cache)
+    else:
+        addr = mm.addr
+        if mm.crcok and mm.errorbit == -1:
+            cache.add(addr)
+        # DF11 with a small residual syndrome: treat it as the Interrogator
+        # Identifier if we know the aircraft (dump1090.c:1204-1209).
+        if mm.msgtype == 11 and not mm.crcok and mm.crc < DF11_IID_MAX_SYNDROME:
+            if cache.recently_seen(addr):
+                mm.iid = mm.crc
+                mm.crcok = True
+
+    mm.msg = bytes(msg)
+    return mm
+
+
+def decode_hex_message(
+    line: str,
+    cache: IcaoCache,
+    cfg: DecoderConfig,
+    stats: DecoderStats | None = None,
+) -> ModesMessage | None:
+    """Parse one `*<hex>;` raw-protocol line and decode it
+    (decodeHexMessage, dump1090.c:2472-2502).  Returns None for invalid
+    input — silently discarded, never an error, like the reference.
+
+    Divergence note: for frames shorter than the DF-implied length the
+    reference reads uninitialized stack bytes (C UB); the tail is
+    deterministically zero-filled."""
+    hexstr = line.strip()
+    if len(hexstr) < 2 or hexstr[0] != "*" or hexstr[-1] != ";":
+        return None
+    body = hexstr[1:-1]
+    if len(body) > LONG_MSG_BYTES * 2 or len(body) % 2:
+        return None
+    # strict hex only: bytes.fromhex tolerates embedded ASCII whitespace,
+    # the reference rejects any non-hex character (dump1090.c:2492-2497)
+    if not all(c in "0123456789abcdefABCDEF" for c in body):
+        return None
+    return decode_message(bytes.fromhex(body), cache, cfg, stats)
 
 
 def message_from_device(raw, meta: int, syn: int) -> ModesMessage:

@@ -17,6 +17,7 @@ state it started from.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import os
 import queue
@@ -57,15 +58,22 @@ class PipelineConfig:
     max_candidates: int = 256
     # Buffers per batch (one emission record per batch).
     batch_buffers: int = 1
+    # --loop: read a seekable source again from its start at EOF, forever.
+    loop: bool = False
+    # Seconds slept per buffer fill: the reference's --interactive playback
+    # brake for --ifile (usleep(5000) per 65.5 ms buffer, dump1090.c:471-477).
+    throttle_s: float = 0.0
     # Batches per dispatch group (one device program sequence, one fetch).
     dispatch_groups: int = 1
     # Ingest strategy for regular files: "auto" uploads every group of a
-    # file up to PRELOAD_CAP_BYTES before the first dispatch; "off" always
-    # streams through a reader thread (one group of lookahead).
+    # file up to PRELOAD_CAP_BYTES before the first dispatch (never for a
+    # looped or throttled source); "off" always streams through a reader
+    # thread (one group of lookahead).
     preload: str = "auto"
     # Dispatch groups in flight before the oldest is fetched.  0 = auto: 3
-    # for seekable sources, 1 for streams.  Output is identical at every
-    # depth.
+    # for seekable sources, 1 for streams and for looped or throttled
+    # sources, where two more groups of latency would break the live
+    # cadence.  Output is identical at every depth.
     dispatch_ahead: int = 0
 
 
@@ -105,9 +113,15 @@ class DemodPipeline:
     PRELOAD_CAP_BYTES = 1536 << 20
 
     def __init__(self, cfg: PipelineConfig | None = None, clock=None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, lock=None):
         self.cfg = cfg or PipelineConfig()
         self.device = resolve_device(device)
+        # held around each batch's emit calls: a caller that also decodes
+        # raw network input on another thread passes the same (reentrant)
+        # lock, so the two paths never interleave inside the tracker, the
+        # cache or stdout, like the single-threaded reference that polls
+        # its sockets between buffers (dump1090.c:2831-2847)
+        self._lock = lock if lock is not None else contextlib.nullcontext()
         # working shapes; sticky growth lives on the INSTANCE so a shared
         # PipelineConfig is not mutated
         self._mc = self.cfg.max_candidates
@@ -143,10 +157,15 @@ class DemodPipeline:
         order, with demod + sequential resolve on the device.  The field
         decode on the host is stateless (models/decoder.py
         message_from_device): every cache/CRC decision arrives in the
-        per-message meta word."""
+        per-message meta word.  The emit calls of each batch run under the
+        pipeline's lock."""
         for meta_h, msg_h in self._device_batches(stream, packed=False):
-            for mm in messages_from_device_arrays(msg_h, meta_h):
-                emit(mm)
+            mms = messages_from_device_arrays(msg_h, meta_h)
+            if not mms:
+                continue
+            with self._lock:
+                for mm in mms:
+                    emit(mm)
 
     def _device_batches(self, stream: BinaryIO, *, packed: bool):
         """Dispatch GROUPS of batches chained through the device-resident
@@ -155,7 +174,9 @@ class DemodPipeline:
         sticky shape growth.  Yields per batch (count, count_long, shorts,
         longs) when packed (see ops.resolve.interleave_packed), else
         (meta[count], msg[count, 14]).  The device cache is synced back to
-        the host cache at the end; stats accumulate into self.stats.
+        the host cache at the end of the stream only, so raw network input
+        decoded on the host meanwhile sees the host cache as it was before
+        the decode; stats accumulate into self.stats.
 
         Clock granularity: `now` is sampled once per dispatch group, like
         the JAX package's device path."""
@@ -288,9 +309,9 @@ class DemodPipeline:
                 seekable = stream.seekable()
             except (OSError, AttributeError, ValueError):
                 seekable = False
-            depth = 3 if seekable else 1
+            depth = 3 if seekable and not self.cfg.loop and self.cfg.throttle_s == 0 else 1
 
-        it = iq_buffers(stream)
+        it = iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
         # entries: (xg, state_before, fetch, ca_after, ct_after, shapes)
         pending: collections.deque = collections.deque()
         groups = self._ingest_groups(stream, it, ng, nb)
@@ -338,10 +359,11 @@ class DemodPipeline:
         trailing batches that hold no buffer are not built: they would be
         all no-signal (127) and carry zero candidates.
 
-        Two strategies: preload (regular files up to PRELOAD_CAP_BYTES)
-        frames and uploads every group before the first dispatch; streaming
-        (stdin, large files, or preload "off") frames and uploads group g+1 on a reader thread while the main
-        thread dispatches and fetches g."""
+        Two strategies: preload (regular files up to PRELOAD_CAP_BYTES, not
+        looped or throttled) frames and uploads every group before the
+        first dispatch; streaming (stdin, large files, --loop, throttled
+        playback, or preload "off") frames and uploads group g+1 on a reader
+        thread while the main thread dispatches and fetches g."""
         dev = self.device
 
         def make_group(bufs):
@@ -354,7 +376,7 @@ class DemodPipeline:
             return list(itertools.islice(it, ng * nb))
 
         preload = False
-        if self.cfg.preload != "off":
+        if self.cfg.preload != "off" and not self.cfg.loop and self.cfg.throttle_s == 0:
             try:
                 cap = int(os.environ.get("DUMP1090_TPU_PRELOAD_BYTES", self.PRELOAD_CAP_BYTES))
                 preload = os.fstat(stream.fileno()).st_size <= cap and stream.seekable()

@@ -1,9 +1,11 @@
 """Mode S CRC-24 and the syndrome error table (numpy, host side).
 
 Behavioral contract: dump1090.c:663-894 (checksum table :683-698, CRC
-:703-742, syndrome table build :795-841).  A copy of the numpy parts of
-dump1090_tpu/ops/crc.py: the port builds its device tables (the GF(2) bit
-matrices and the dense syndrome -> fix table of ops/resolve.py) from these,
+:703-742, syndrome table build :795-841, fixBitErrors :854-894).  A copy of
+the numpy parts of dump1090_tpu/ops/crc.py: the port builds its device
+tables (the GF(2) bit matrices and the dense syndrome -> fix table of
+ops/resolve.py) from these, the host decode of raw network input
+(models/decoder.py decode_message) fixes bit errors with fix_bit_errors,
 and the tests hold them equal to the JAX package's.
 
 The table is derived from the generator polynomial (not copied):
@@ -160,3 +162,23 @@ def _glibc_bsearch(sorted_syndromes: np.ndarray, key: int) -> int:
         else:
             return mid
     return -1
+
+
+def fix_bit_errors(msg: np.ndarray, bits: int, maxfix: int) -> list[int]:
+    """Correct up to `maxfix` bit errors in-place; returns the list of fixed
+    bit positions (empty if uncorrectable).  dump1090.c:854-894."""
+    syndromes, nbits, pos0, pos1 = bit_error_table()
+    idx = _glibc_bsearch(syndromes, checksum(msg, bits))
+    if idx < 0:
+        return []
+    k = int(nbits[idx])
+    if k > maxfix:
+        return []
+    offset = LONG_MSG_BITS - bits
+    positions = [int(pos0[idx])] + ([int(pos1[idx])] if k == 2 else [])
+    rel = [p - offset for p in positions]
+    if any(p < 0 or p >= bits for p in rel):
+        return []
+    for p in rel:
+        msg[p >> 3] ^= 1 << (7 - (p & 7))
+    return rel

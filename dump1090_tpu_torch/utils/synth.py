@@ -253,3 +253,92 @@ def forced_cut_stream(seed: int, n_buffers: int, mc: int, now: int):
         ca[h] = b
         ct[h] = now - (3 if k % 3 else ICAO_CACHE_TTL + 1)  # fresh / just expired
     return pf, w1.astype(np.int32), w2.astype(np.int32), nbuf, ca, ct
+
+
+def _cpr_airborne_encode(lat: float, lon: float, odd: int) -> tuple[int, int]:
+    """The 17-bit airborne CPR encoding of (lat, lon) for one parity (the
+    inverse of models/cpr.py decode_cpr_airborne)."""
+    from ..models.cpr import nl_function
+
+    dlat = 360.0 / (60 - odd)
+    yz = int(np.floor(131072 * (lat % dlat) / dlat + 0.5))
+    rlat = dlat * (yz / 131072 + np.floor(lat / dlat))
+    dlon = 360.0 / max(nl_function(rlat) - odd, 1)
+    xz = int(np.floor(131072 * (lon % dlon) / dlon + 0.5))
+    return yz & 0x1FFFF, xz & 0x1FFFF
+
+
+def traffic_frames(seed: int, n: int, *, n_aircraft: int = 12,
+                   flip_weights: tuple[float, ...] = (0.8, 0.15, 0.05)) -> list[tuple[bytes, int]]:
+    """`n` frames of mixed Mode S traffic from `n_aircraft` aircraft, drawn
+    from `seed`, as (frame bytes, flipped bits) in order: DF 0/4/5/16/20/21/24
+    with address/parity (the CRC XOR the address), DF11 all-call replies
+    (some with a small interrogator id in the parity), and DF17/18
+    extended squitters of ME types 1-4 (identification), 5-8 (surface
+    position), 9-18 (airborne position: an even and an odd frame of one
+    aircraft back to back, CPR-encoded from where it flies: a position
+    within 2 degrees of 52 N 4 E that drifts a little from pair to pair),
+    19 (velocity, subtypes 0-7) and others with random payloads.  Short
+    frames are 7 bytes.  Each frame has 0, 1 or 2 flipped bits past the DF
+    field, drawn with `flip_weights`."""
+    from ..constants import SHORT_MSG_BITS, message_bits_for_df
+
+    rng = np.random.default_rng(seed)
+    pool = [int(a) for a in rng.integers(1, 1 << 24, n_aircraft)]
+    home = {a: (52.0 + float(rng.uniform(-1.5, 1.5)), 4.0 + float(rng.uniform(-2.0, 2.0)))
+            for a in pool}
+    weights = np.asarray(flip_weights, dtype=np.float64)
+    out: list[tuple[bytes, int]] = []
+
+    def finish(msg: bytearray, parity_xor: int = 0) -> None:
+        bits = message_bits_for_df(msg[0] >> 3)
+        nb = bits // 8
+        msg = msg[:nb]
+        c = crc_ops.compute_crc(np.frombuffer(bytes(msg), np.uint8), bits) ^ parity_xor
+        msg[nb - 3], msg[nb - 2], msg[nb - 1] = (c >> 16) & 0xFF, (c >> 8) & 0xFF, c & 0xFF
+        nflip = int(rng.choice(len(weights), p=weights / weights.sum()))
+        for p in rng.choice(np.arange(5, bits), nflip, replace=False):
+            msg[p >> 3] ^= 1 << (7 - (int(p) & 7))
+        out.append((bytes(msg), nflip))
+
+    def es(df: int, addr: int, me: bytes) -> bytearray:
+        msg = bytearray(14)
+        msg[0] = (df << 3) | int(rng.integers(0, 8))
+        msg[1:4] = addr.to_bytes(3, "big")
+        msg[4:11] = me
+        return msg
+
+    while len(out) < n:
+        addr = pool[int(rng.integers(0, n_aircraft))]
+        kind = int(rng.integers(0, 10))
+        if kind <= 2:  # address/parity replies
+            df = int(rng.choice([0, 4, 5, 16, 20, 21, 24]))
+            msg = bytearray(rng.bytes(14))
+            msg[0] = (df << 3) | (msg[0] & 7)
+            if df == 24:
+                msg[0] |= 0xC0
+            finish(msg, addr)
+        elif kind == 3:  # all-call reply, now and then with an IID
+            msg = bytearray(rng.bytes(SHORT_MSG_BITS // 8))
+            msg[0] = (11 << 3) | (msg[0] & 7)
+            msg[1:4] = addr.to_bytes(3, "big")
+            finish(msg, int(rng.integers(1, 80)) if rng.random() < 0.2 else 0)
+        elif kind <= 6:  # an even/odd airborne position pair
+            lat, lon = home[addr]
+            home[addr] = (lat + float(rng.uniform(-0.01, 0.01)),
+                          lon + float(rng.uniform(-0.01, 0.01)))
+            n_alt = int(rng.integers(40, 1640))
+            tc = int(rng.integers(9, 19))
+            for odd in (0, 1):
+                yz, xz = _cpr_airborne_encode(lat, lon, odd)
+                me = bytes([tc << 3, ((n_alt >> 4) << 1) | 1,
+                            ((n_alt & 0xF) << 4) | (odd << 2) | (yz >> 15),
+                            (yz >> 7) & 0xFF, ((yz & 0x7F) << 1) | (xz >> 16),
+                            (xz >> 8) & 0xFF, xz & 0xFF])
+                finish(es(17, addr, me))
+        else:  # identification, surface, velocity and other ME types
+            tc = int(rng.choice([1, 2, 3, 4, 5, 6, 7, 8, 19, 19, 19, 23, 28, 29, 31]))
+            sub = int(rng.integers(0, 8))
+            me = bytes([(tc << 3) | sub]) + rng.bytes(6)
+            finish(es(18 if rng.random() < 0.15 else 17, addr, me))
+    return out[:n]

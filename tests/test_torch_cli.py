@@ -1,13 +1,22 @@
 """`python -m dump1090_tpu_torch --device cpu` against `python -m dump1090_tpu
---tpu-backend cpu --tpu-device-resolve on`: stdout byte-equal for --raw and
---stats, at the CLI's own file-decode defaults (64-buffer batches, 8 batches
-per group), on the committed golden input and on a seeded synthetic capture
-with fixed frames.  Only stdout is compared: the throughput meter goes to
-stderr."""
+--tpu-backend cpu --tpu-device-resolve on`: stdout byte-equal for every
+output mode of the file decode, at the CLI's own file-decode defaults
+(64-buffer batches, 8 batches per group), on the committed golden input and
+on a seeded synthetic capture with fixed frames: --raw and --stats (the
+bulk device path), and the plain verbose display, --onlyaddr,
+--raw --no-crc-check, --stats --onlyaddr and --onlyaddr --metric (the
+message hub over run_device).  Only stdout is compared: the throughput
+meter goes to stderr.  Also --tpu-state-save/--tpu-state-load, --net-only
+(which needs no card), --snip and what the port refuses."""
 
+import concurrent.futures
+import json
 import os
+import signal
+import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -15,71 +24,259 @@ import pytest
 from dump1090_tpu_torch.utils.synth import planted_capture
 
 REPO = Path(__file__).resolve().parent.parent
-FLAGS = ("--raw", "--stats")
+MODES = {
+    "raw": ("--raw",),
+    "stats": ("--stats",),
+    "verbose": (),
+    "onlyaddr": ("--onlyaddr",),
+    "raw_nocrc": ("--raw", "--no-crc-check"),
+    "stats_onlyaddr": ("--stats", "--onlyaddr"),
+    "onlyaddr_metric": ("--onlyaddr", "--metric"),
+}
+JAX_CLI = ("-m", "dump1090_tpu", "--tpu-backend", "cpu", "--tpu-device-resolve", "on")
+PORT_CLI = ("-m", "dump1090_tpu_torch", "--device", "cpu")
 
 
-def _run_all(path: Path, cache_dir: Path) -> dict:
-    """Both CLIs, both flags, started together; returns stdout by key."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_COMPILATION_CACHE_DIR=str(cache_dir))
-    cmds = {}
-    for flag in FLAGS:
-        cmds[("jax", flag)] = [sys.executable, "-m", "dump1090_tpu", "--tpu-backend", "cpu",
-                               "--tpu-device-resolve", "on", "--ifile", str(path), flag]
-        cmds[("port", flag)] = [sys.executable, "-m", "dump1090_tpu_torch", "--device", "cpu",
-                                "--ifile", str(path), flag]
-    procs = {
-        k: subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE)
-        for k, c in cmds.items()
-    }
-    out = {}
-    for k, p in procs.items():
-        stdout, stderr = p.communicate(timeout=300)
-        assert p.returncode == 0, (k, stderr.decode()[-2000:])
-        out[k] = stdout
-    return out
+def _env(cache_dir: Path) -> dict:
+    """The CLI processes' environment: JAX on the CPU with a shared
+    compilation cache, and one compute thread per process (torch's and
+    XLA's), so the processes this file starts beside the other test workers
+    do not oversubscribe the machine."""
+    xla = os.environ.get("XLA_FLAGS", "") + " --xla_cpu_multi_thread_eigen=false"
+    return dict(os.environ, JAX_PLATFORMS="cpu", JAX_COMPILATION_CACHE_DIR=str(cache_dir),
+                OMP_NUM_THREADS="1", XLA_FLAGS=xla.strip())
+
+
+def _run_many(cmds: dict, env: dict) -> dict:
+    """Each command in its own process, four at a time; stdout by key."""
+    def run(cmd):
+        r = subprocess.run([sys.executable, *cmd], cwd=REPO, env=env, capture_output=True,
+                           timeout=300)
+        assert r.returncode == 0, (cmd, r.stderr.decode()[-2000:])
+        return r.stdout
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        futures = {k: pool.submit(run, c) for k, c in cmds.items()}
+        return {k: f.result() for k, f in futures.items()}
 
 
 @pytest.fixture(scope="module")
-def outputs(tmp_path_factory, golden_dir):
-    tmp = tmp_path_factory.mktemp("cli")
-    synth = tmp / "synth.bin"
-    data, planted = planted_capture(4, 40, seed=3, flip_weights=(0.7, 0.2, 0.1))
-    synth.write_bytes(data)
-    return {
-        "golden": _run_all(golden_dir / "debug_p_input.bin", tmp / "jaxcache"),
-        "synth": _run_all(synth, tmp / "jaxcache"),
-    }
+def synth_path(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cli") / "synth.bin"
+    data, _ = planted_capture(4, 40, seed=3, flip_weights=(0.7, 0.2, 0.1))
+    path.write_bytes(data)
+    return path
 
 
-@pytest.mark.parametrize("flag", FLAGS)
+@pytest.fixture(scope="module")
+def outputs(tmp_path_factory, golden_dir, synth_path):
+    env = _env(tmp_path_factory.mktemp("jaxcache"))
+    cmds = {}
+    for name, path in (("golden", golden_dir / "debug_p_input.bin"), ("synth", synth_path)):
+        for mode, flags in MODES.items():
+            cmds[(name, "jax", mode)] = (*JAX_CLI, "--ifile", str(path), *flags)
+            cmds[(name, "port", mode)] = (*PORT_CLI, "--ifile", str(path), *flags)
+    return _run_many(cmds, env)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("name", ["golden", "synth"])
-def test_cli_stdout_equals_jax_cli(outputs, name, flag):
-    got = outputs[name][("port", flag)]
-    want = outputs[name][("jax", flag)]
-    assert got == want
-    if flag == "--raw":
-        lines = got.split()
-        assert len(lines) == (1 if name == "golden" else len(lines))
-        if name == "synth":
-            assert len(lines) >= 100
-    else:
-        fixed = int(got.decode().splitlines()[5].split()[0])
+def test_cli_stdout_equals_jax_cli(outputs, name, mode):
+    got = outputs[(name, "port", mode)]
+    assert got == outputs[(name, "jax", mode)]
+    text = got.decode()
+    if mode == "raw":
+        assert len(got.split()) == 1 if name == "golden" else len(got.split()) >= 100
+    elif mode.startswith("stats"):
+        fixed = int(text.splitlines()[5].split()[0])
         assert fixed > 0 if name == "synth" else fixed == 0
+    elif mode == "verbose":
+        # every --raw line opens a verbose block, in order
+        raw = outputs[(name, "port", "raw")].decode().splitlines()
+        assert [ln for ln in text.splitlines() if ln.startswith("*")] == raw
+        assert text.count("CRC: ") == len(raw) and "DF 17: ADS-B message." in text
+    elif mode == "raw_nocrc":
+        # badly-received frames are shown too
+        assert len(got.split()) > len(outputs[(name, "port", "raw")].split()) or name == "golden"
+    else:
+        assert got and all(len(a) == 6 for a in text.split())
+
+
+def test_state_save_and_load_equal_jax(tmp_path, synth_path):
+    """--tpu-state-save writes the JAX package's snapshot (the cache's
+    timestamps aside, which are the wall clock of each run), and a --stats
+    run that loads it prints the same accumulated counters."""
+    env = _env(tmp_path / "jaxcache")
+    saved = {pkg: tmp_path / f"{pkg}.json" for pkg in ("jax", "port")}
+    _run_many({pkg: (*cli, "--ifile", str(synth_path), "--onlyaddr", "--tpu-state-save",
+                     str(saved[pkg]))
+               for pkg, cli in (("jax", JAX_CLI), ("port", PORT_CLI))}, env)
+    docs = {pkg: json.loads(p.read_text()) for pkg, p in saved.items()}
+    for d in docs.values():
+        d["icao_cache"]["ts"] = [t > 0 for t in d["icao_cache"]["ts"]]
+    assert docs["port"] == docs["jax"] and docs["port"]["stats"]["goodcrc"] > 100
+    out = _run_many({pkg: (*cli, "--ifile", str(synth_path), "--stats", "--tpu-state-load",
+                           str(saved["jax"]))
+                     for pkg, cli in (("jax", JAX_CLI), ("port", PORT_CLI))}, env)
+    assert out["port"] == out["jax"]
+    assert int(out["port"].split()[0]) == 2 * docs["jax"]["stats"]["valid_preamble"]
+
+
+def test_net_only_needs_no_card_and_relays(tmp_path):
+    """--net-only does no device work: it starts without a card (CUDA is
+    made unavailable to the process) and relays raw input to raw output."""
+    ports = []
+    socks = [socket.socket() for _ in range(4)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    ro, ri, http, sbs = ports
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    p = subprocess.Popen(
+        [sys.executable, *PORT_CLI[:2], "--net-only", "--net-ro-port", str(ro), "--net-ri-port",
+         str(ri), "--net-http-port", str(http), "--net-sbs-port", str(sbs)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        deadline = time.time() + 60
+        out = None
+        while out is None and time.time() < deadline:
+            try:
+                out = socket.create_connection(("127.0.0.1", ro), timeout=1)
+            except OSError:
+                time.sleep(0.1)
+        assert out is not None, "raw output port never opened"
+        with out, socket.create_connection(("127.0.0.1", ri), timeout=5) as inp:
+            time.sleep(0.1)
+            inp.sendall(b"*8d4d2023991094ad487c14fc9e3d;\n")
+            out.settimeout(10)
+            assert out.recv(4096) == b"*8D4D2023991094AD487C14FC9E3D;\n"
+    finally:
+        p.send_signal(signal.SIGINT)
+        _, err = p.communicate(timeout=30)
+    assert p.returncode == 0
+    assert b"Net-only mode, no RTL device or file open." in err
+
+
+def test_bind_failure_equals_jax(tmp_path):
+    """A port that cannot be bound: the reference's wording on stderr, after
+    the net-only announcement, and exit 1, as the JAX CLI does."""
+    busy = socket.socket()
+    busy.bind(("127.0.0.1", 0))
+    busy.listen()
+    try:
+        port = str(busy.getsockname()[1])
+        got = {}
+        for pkg, cli in (("jax", JAX_CLI[:2]), ("port", PORT_CLI[:2])):
+            r = subprocess.run([sys.executable, *cli, "--net-only", "--net-sbs-port", port],
+                               cwd=REPO, capture_output=True, timeout=120,
+                               env=_env(tmp_path / "jaxcache"))
+            got[pkg] = (r.returncode, r.stdout, r.stderr)
+    finally:
+        busy.close()
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == 1 and got["port"][2] == (
+        "Net-only mode, no RTL device or file open.\n"
+        f"Error opening the listening port {port} (Basestation TCP output): "
+        "Address already in use\n").encode()
+
+
+def test_snip_equals_jax(golden_dir):
+    data = (golden_dir / "debug_p_input.bin").read_bytes()[:60000]
+    got = subprocess.run([sys.executable, *PORT_CLI[:2], "--snip", "25"], input=data, cwd=REPO,
+                         capture_output=True, timeout=120)
+    want = subprocess.run([sys.executable, *JAX_CLI[:2], "--snip", "25"], input=data, cwd=REPO,
+                          capture_output=True, timeout=120, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert got.returncode == want.returncode == 0
+    assert got.stdout == want.stdout and 0 < len(got.stdout) <= len(data)
 
 
 def test_cli_refuses_what_is_not_ported(capsys):
     from dump1090_tpu_torch.cli import parse_args
 
-    for args in (["--ifile", "x.bin", "--raw", "--net"],
-                 ["--ifile", "x.bin", "--raw", "--debug", "d"],
-                 ["--ifile", "x.bin"]):  # the verbose display
+    for args in (["--ifile", "x.bin", "--raw", "--debug", "d"],
+                 ["--raw"],  # live RTL-SDR input
+                 ["--ifile", "x.bin", "--gain", "10"],
+                 ["--ifile", "x.bin", "--tpu-shard-time", "2"]):
         with pytest.raises(SystemExit) as e:
             parse_args(args)
         assert e.value.code == 2
         out, err = capsys.readouterr()
         assert "not yet ported" in err and out == ""
+    o = parse_args(["--ifile", "x.bin", "--net", "--onlyaddr", "--no-crc-check", "--metric",
+                    "--interactive", "--interactive-rows", "9", "--interactive-ttl", "5", "--loop",
+                    "--net-ro-port", "1", "--net-ri-port", "2x", "--net-http-port", "3",
+                    "--net-sbs-port", "4", "--tpu-state-load", "a", "--tpu-state-save", "b"])
+    assert (o.net, o.onlyaddr, o.check_crc, o.metric, o.interactive, o.loop) == \
+        (True, True, False, True, True, True)
+    assert (o.interactive_rows, o.interactive_ttl, o.ro_port, o.ri_port, o.http_port,
+            o.sbs_port, o.state_load, o.state_save) == (9, 5, 1, 2, 3, 4, "a", "b")
+    assert parse_args(["--net-only"]).net_only and parse_args(["--snip", "3"]).snip == 3
     with pytest.raises(SystemExit) as e:
         parse_args(["--bogus"])
     assert e.value.code == 1
     assert "Unknown or not enough arguments" in capsys.readouterr().err
+
+
+def _main_inprocess(main, argv) -> bytes:
+    """A CLI's main in this process, stdout captured as bytes; the signal
+    handlers it installs are put back."""
+    import io
+
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf, encoding="utf-8", write_through=True)
+    saved = {s: signal.getsignal(s) for s in (signal.SIGPIPE, signal.SIGWINCH)}
+    real = sys.stdout
+    sys.stdout = out
+    try:
+        assert main(list(argv)) == 0
+    finally:
+        sys.stdout = real
+        for s, h in saved.items():
+            signal.signal(s, h)
+    out.flush()
+    return buf.getvalue()
+
+
+def test_interactive_equals_jax(monkeypatch, tmp_path, golden_dir):
+    """--interactive (one buffer per batch, the 5 ms playback brake, the
+    250 ms refresh and the final screen) on a frozen clock: the same bytes
+    as the JAX CLI, and the screen lists the tracked aircraft."""
+    import dump1090_tpu.cli as jcli
+    import dump1090_tpu_torch.cli as tcli
+
+    data, _ = planted_capture(3, 40, seed=4)
+    path = tmp_path / "cap.bin"
+    path.write_bytes(data)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jaxcache"))
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
+    monkeypatch.setattr(time, "sleep", lambda s: None)
+    args = ["--ifile", str(path), "--interactive", "--interactive-rows", "12"]
+    got = _main_inprocess(tcli.main, ["--device", "cpu", *args])
+    want = _main_inprocess(jcli.main, ["--tpu-backend", "cpu", "--tpu-device-resolve", "on",
+                                       *args])
+    assert got == want
+    screens = got.decode().split("\x1b[H\x1b[2J")
+    assert len(screens) == 3 and screens[-1].count(" sec\n") == 12
+
+
+def test_sigwinch_rereads_rows_and_redraws(capsys):
+    """On SIGWINCH the row count is re-read and the screen redrawn at once
+    (sigWinchCallback, dump1090.c:2772-2777)."""
+    import threading
+
+    from dump1090_tpu_torch import cli
+    from dump1090_tpu_torch.models.tracker import AircraftTracker
+
+    o = cli.parse_args(["--ifile", "x.bin", "--interactive"])
+    o.interactive_rows = 1  # stale; the handler must replace it
+    old = signal.getsignal(signal.SIGWINCH)
+    try:
+        cli._install_sigwinch(o, AircraftTracker(), threading.RLock(), threading.Lock())
+        os.kill(os.getpid(), signal.SIGWINCH)
+        time.sleep(0.05)
+        assert o.interactive_rows == cli.get_term_rows()
+        assert "Flight" in capsys.readouterr().out
+    finally:
+        signal.signal(signal.SIGWINCH, old)

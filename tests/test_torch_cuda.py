@@ -174,3 +174,32 @@ def test_run_device_on_card_equals_cpu(cuda):
         p.run_device(io.BytesIO(data), msgs.append)
         outs[dev] = (msgs, p.stats)
     assert outs["cuda"] == outs["cpu"] and outs["cuda"][0]
+
+
+def test_hub_over_run_device_on_card_equals_cpu(cuda):
+    """The CLI's hub path on the card: run_device into the message hub,
+    verbose display and SBS lines (tracking on through a counted SBS
+    client), against the CPU run; K1 and K2 launched on the card run."""
+    from dump1090_tpu_torch.models.hub import HubConfig, MessageHub
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.models.tracker import AircraftTracker
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    data, _ = planted_capture(6, 80, seed=23, noise_sigma=3.0, flip_weights=(0.6, 0.3, 0.1))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2), clock=lambda: NOW,
+                          device=dev)
+        p.stats.sbs_connections = 1
+        text, sbs = io.StringIO(), []
+        tracker = AircraftTracker(clock=lambda: NOW, msclock=lambda: NOW * 1000)
+        hub = MessageHub(HubConfig(), tracker, p.stats, out=text, sbs_sink=sbs.append)
+        _cuda.reset_launches()
+        p.run_device(io.BytesIO(data), hub.use_message)
+        launches = dict(_cuda.launches)
+        outs[dev] = (text.getvalue(), sbs, p.stats)
+        if dev == "cuda":
+            assert launches["gather_windows"] > 0 and launches["resolve_words"] > 0
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cuda"][0].count("CRC: ") > 300 and outs["cuda"][1]

@@ -1,11 +1,15 @@
-"""The port's stateless message decode (models/decoder.py) and host
-syndromes (ops/crc.py batch_syndromes) against the JAX package: every
+"""The port's message decode (models/decoder.py) and host CRC (ops/crc.py)
+against the JAX package.  The stateless decode of device emissions: every
 Downlink Format, DF17 metypes 1-19, velocity subtypes 1-4 with headings in
-every quadrant, both frame lengths, random meta words.  Exact equality."""
+every quadrant, both frame lengths, random meta words.  The stateful host
+decode (decode_message, decode_hex_message, brute_force_ap, the ICAO cache,
+fix_bit_errors): seeded traffic of every DF with 0-2 flipped bits under fix
+on, fix off and aggressive, and malformed hex lines.  Exact equality."""
 
 import dataclasses
 
 import numpy as np
+import pytest
 
 import dump1090_tpu.models.decoder as jd
 import dump1090_tpu.ops.crc as jcrc
@@ -80,3 +84,100 @@ def test_field_helpers_match_jax():
         assert td.decode_ac12_field(f) == jd.decode_ac12_field(f)
     for mv in range(128):
         assert td.decode_movement_field(mv) == jd.decode_movement_field(mv)
+
+
+NOW = 1_700_000_000
+MODES = {"fix": dict(fix_errors=True), "nofix": dict(fix_errors=False),
+         "aggressive": dict(fix_errors=True, aggressive=True)}
+
+
+def _caches():
+    """One ICAO cache per package, on one frozen clock that a test moves."""
+    t = [NOW]
+    return t, td.IcaoCache(clock=lambda: t[0]), jd.IcaoCache(clock=lambda: t[0])
+
+
+def _assert_same_state(tc, jc, ts, js):
+    np.testing.assert_array_equal(tc.addr, jc.addr)
+    np.testing.assert_array_equal(tc.ts, jc.ts)
+    assert dataclasses.asdict(ts) == dataclasses.asdict(js)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_decode_message_matches_jax(mode):
+    """Seeded frames of DF 0/4/5/11/16/17/18/20/21/24 with 0-2 flipped
+    bits, through both packages' decode_message with one cache and stats
+    each: every field, the cache arrays and the counters after every
+    frame.  The clock moves past the cache's TTL now and then."""
+    from dump1090_tpu_torch.utils.synth import traffic_frames
+
+    t, tc, jc = _caches()
+    ts, js = td.DecoderStats(), jd.DecoderStats()
+    tcfg, jcfg = td.DecoderConfig(**MODES[mode]), jd.DecoderConfig(**MODES[mode])
+    frames = traffic_frames(5, 1500, flip_weights=(0.6, 0.25, 0.15))
+    seen = set()
+    for k, (f, nflip) in enumerate(frames):
+        if k % 500 == 499:
+            t[0] += 61  # every cached address expires
+        g = td.decode_message(f, tc, tcfg, ts)
+        w = jd.decode_message(f, jc, jcfg, js)
+        assert dataclasses.asdict(g) == dataclasses.asdict(w), (k, f.hex())
+        _assert_same_state(tc, jc, ts, js)
+        seen.add((g.msgtype, g.crcok, g.errorbit != -1, bool(g.iid)))
+    if mode != "nofix":
+        assert ts.single_bit_fix > 0 and any(s[2] for s in seen)
+    assert (ts.two_bits_fix > 0) == (mode == "aggressive")
+    assert {df for df, ok, _, _ in seen if ok} >= {0, 4, 5, 11, 16, 17, 18, 20, 21, 24}
+    assert any(iid for *_, iid in seen)  # a DF11 interrogator id accepted
+
+
+def test_decode_hex_message_matches_jax():
+    """Hex lines of the same traffic, in both cases and with surrounding
+    whitespace, plus malformed lines: the same message or None, and the
+    same cache and counters."""
+    from dump1090_tpu_torch.utils.synth import traffic_frames
+
+    _, tc, jc = _caches()
+    ts, js = td.DecoderStats(), jd.DecoderStats()
+    tcfg, jcfg = td.DecoderConfig(), jd.DecoderConfig()
+    lines = []
+    for k, (f, _) in enumerate(traffic_frames(6, 600)):
+        h = f.hex().upper() if k % 2 else f.hex()
+        lines.append(("  *%s;  \n" if k % 3 == 0 else "*%s;\n") % h)
+    lines += ["", "*", ";", "*;", "5d4d20237a55a6;", "*5d4d20237a55a6", "*5d4d20237a55a;",
+              "*zz4d20237a55a6;", "*" + "ab" * 15 + ";", "*5d4d 20237a55a6;", "*5d4d20237a55a6;x",
+              "**5d4d20237a55a6;", "*8d4d2023991094ad487c14fc9e3d;", "*02e197b00179c3;",
+              "*5d4d20237a55a6;;", "\x00*5d4d20237a55a6;", "*5D4D20237A55A6;\r\n"]
+    n_none = 0
+    for line in lines:
+        g = td.decode_hex_message(line, tc, tcfg, ts)
+        w = jd.decode_hex_message(line, jc, jcfg, js)
+        assert (g is None) == (w is None), repr(line)
+        if g is None:
+            n_none += 1
+        else:
+            assert dataclasses.asdict(g) == dataclasses.asdict(w), repr(line)
+        _assert_same_state(tc, jc, ts, js)
+    assert n_none >= 12
+    mm = td.decode_hex_message("*;", tc, tcfg)
+    assert mm is not None and mm.msgtype == 0  # zero-filled, as in JAX
+
+
+def test_fix_bit_errors_and_cache_match_jax():
+    rng = np.random.default_rng(8)
+    for _ in range(3000):
+        f = rng.integers(0, 256, 14, dtype=np.uint8)
+        bits = int(rng.choice([56, 112]))
+        for maxfix in (1, 2):
+            a, b = f.copy(), f.copy()
+            assert tcrc.fix_bit_errors(a, bits, maxfix) == jcrc.fix_bit_errors(b, bits, maxfix)
+            np.testing.assert_array_equal(a, b)
+    t, tc, jc = _caches()
+    for a in rng.integers(0, 1 << 24, 3000).tolist():
+        tc.add(a)
+        jc.add(a)
+        t[0] += int(rng.integers(0, 3))
+        probe = int(rng.integers(0, 1 << 24)) if rng.random() < 0.3 else a
+        assert tc.recently_seen(probe) == jc.recently_seen(probe)
+    np.testing.assert_array_equal(tc.addr, jc.addr)
+    np.testing.assert_array_equal(tc.ts, jc.ts)

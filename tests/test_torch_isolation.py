@@ -1,6 +1,7 @@
 """The port stands alone: no file of dump1090_tpu_torch/ (nor chip_smoke.py)
-imports jax or dump1090_tpu, it decodes with both made unimportable, and
-its entry points refuse to fall back to the CPU when no card is present."""
+imports jax or dump1090_tpu, it decodes (file decode, decode_captures and
+the message hub over run_device) with both made unimportable, and its
+entry points refuse to fall back to the CPU when no card is present."""
 
 import ast
 import subprocess
@@ -51,6 +52,21 @@ msgs = dump1090_tpu_torch.decode_captures([data, data[:200_000]], crcok_only=Tru
 assert [b"*" + m.msg[: m.msgbits // 8].hex().encode() + b";\\n" for m in msgs[0]] \
     == want.splitlines(keepends=True)
 assert len(msgs[1]) > 0
+# the message hub over run_device: the verbose display, with the tracker
+# on through a counted SBS client, and the net and state modules loaded
+from dump1090_tpu_torch.io import net
+from dump1090_tpu_torch.models.hub import HubConfig, MessageHub
+from dump1090_tpu_torch.models.tracker import AircraftTracker
+from dump1090_tpu_torch.utils import state
+p = DemodPipeline(PipelineConfig(), device="cpu", clock=lambda: 1_700_000_000)
+p.stats.sbs_connections = 1
+text, sbs = io.StringIO(), []
+hub = MessageHub(HubConfig(), AircraftTracker(), p.stats, out=text, sbs_sink=sbs.append)
+p.run_device(io.BytesIO(data), hub.use_message)
+assert [ln for ln in text.getvalue().splitlines() if ln.startswith("*")] \
+    == [w.decode() for w in want.split()]
+assert sbs and all(line.startswith("MSG,") for line in sbs)
+assert len(hub.tracker.aircraft) > 0 and state.snapshot(hub.tracker, p.cache, p.stats)
 assert not any(m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
                for m, v in sys.modules.items() if v is not None)
 print("ok", p.stats.goodcrc)
@@ -73,9 +89,10 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
         decode_captures([b"\x7f" * 1000])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_capture(b"\x7f" * 1000)
-    r = subprocess.run(
-        [sys.executable, "-m", "dump1090_tpu_torch", "--ifile",
-         str(REPO / "tests" / "golden" / "debug_p_input.bin"), "--raw"],
-        cwd=REPO, capture_output=True,
-    )
-    assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
+    for flags in (["--raw"], [], ["--onlyaddr", "--net"]):  # bulk path, hub path
+        r = subprocess.run(
+            [sys.executable, "-m", "dump1090_tpu_torch", "--ifile",
+             str(REPO / "tests" / "golden" / "debug_p_input.bin"), *flags],
+            cwd=REPO, capture_output=True,
+        )
+        assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""

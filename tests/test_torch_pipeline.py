@@ -122,3 +122,156 @@ def test_state_carried_from_jax_into_port(capture):
     np.testing.assert_array_equal(pt.cache.addr, pj.cache.addr)
     back = state_to_numpy(pt.state())
     np.testing.assert_array_equal(back[0], pj.cache.addr)
+
+
+def test_iq_buffers_loop_and_throttle_match_jax(capture, monkeypatch):
+    """--loop reads a seekable stream again from its start at EOF, the same
+    buffers as the JAX package's; the interactive brake sleeps before each
+    fill."""
+    import itertools
+
+    from dump1090_tpu.io.sources import iq_buffers as jax_iq_buffers
+    from dump1090_tpu_torch.io import sources
+
+    got = list(itertools.islice(sources.iq_buffers(io.BytesIO(capture), loop=True), 13))
+    want = list(itertools.islice(jax_iq_buffers(io.BytesIO(capture), loop=True), 13))
+    assert len(got) == 13
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    flat = list(sources.iq_buffers(io.BytesIO(capture * 3)))
+    for g, w in zip(got, flat):  # looping reads on seamlessly across EOF
+        np.testing.assert_array_equal(g, w)
+    sleeps = []
+    monkeypatch.setattr(sources.time, "sleep", sleeps.append)
+    assert len(list(sources.iq_buffers(io.BytesIO(capture), throttle_s=0.005))) == 5
+    assert sleeps == [0.005] * 6  # one per fill, the EOF fill included
+
+
+def _dispatch_log(monkeypatch):
+    """Record the pipeline's dispatches (D) and fetches (F) in order."""
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    log = []
+    real_dispatch, real_get = pl.demod_resolve_group, pl._Fetch.get
+
+    def dispatch(*a, **k):
+        log.append("D")
+        return real_dispatch(*a, **k)
+
+    def get(self):
+        log.append("F")
+        return real_get(self)
+
+    monkeypatch.setattr(pl, "demod_resolve_group", dispatch)
+    monkeypatch.setattr(pl._Fetch, "get", get)
+    return log
+
+
+@pytest.mark.parametrize("kind", ["file", "throttled", "looped"])
+def test_dispatch_ahead_auto_depth_and_no_preload_for_live_sources(capture, tmp_path,
+                                                                  monkeypatch, kind):
+    """The auto depth is 3 for a seekable file, 1 for a looped or throttled
+    one (and such sources stream through the reader thread instead of being
+    preloaded: a looped file never ends).  The looped decode equals the
+    file read three times over."""
+    import itertools
+
+    from dump1090_tpu_torch.io import sources
+
+    monkeypatch.setattr(sources.time, "sleep", lambda s: None)
+    f = tmp_path / "cap.bin"
+    f.write_bytes(capture * (1 if kind == "looped" else 3))
+    cfg = dict(batch_buffers=2, dispatch_groups=1, max_candidates=512,
+               loop=kind == "looped", throttle_s=0.001 if kind == "throttled" else 0.0)
+    log = _dispatch_log(monkeypatch)
+    p = DemodPipeline(PipelineConfig(**cfg), clock=lambda: NOW, device="cpu")
+    with open(f, "rb") as fh:
+        batches = list(itertools.islice(p._device_batches(fh, packed=False), 6))
+    depth = 3 if kind == "file" else 1
+    assert log[: depth + 2] == ["D"] * (depth + 1) + ["F"]
+    assert len(batches) == 6
+    if kind == "looped":
+        flat = DemodPipeline(PipelineConfig(**dict(cfg, loop=False)), clock=lambda: NOW,
+                             device="cpu")
+        want = list(itertools.islice(flat._device_batches(io.BytesIO(capture * 3),
+                                                          packed=False), 6))
+        for (gm, gx), (wm, wx) in zip(batches, want):
+            np.testing.assert_array_equal(gm, wm)
+            np.testing.assert_array_equal(gx, wx)
+
+
+def test_run_device_emits_under_the_callers_lock(capture):
+    """run_device holds the pipeline's lock around each batch's emits, so
+    another thread decoding raw network input under the same lock never
+    interleaves with a batch."""
+    import threading
+
+    lock = threading.RLock()
+    p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2), clock=lambda: NOW,
+                      device="cpu", lock=lock)
+    held = []
+    p.run_device(io.BytesIO(capture), lambda mm: held.append(lock._is_owned()))
+    assert len(held) > 100 and all(held)
+    assert not lock._is_owned()
+
+
+def test_raw_input_threads_and_run_device_share_the_hub_under_the_lock(capture):
+    """The CLI's two writers of one state, stressed: run_device emitting
+    into the hub while more threads than cores feed raw lines into it
+    through decode_hex_message, all under one reentrant lock, with a short
+    switch interval.  No update to the tracker is lost and no verbose block
+    is cut by another."""
+    import os
+    import sys
+    import threading
+
+    from dump1090_tpu_torch.models.decoder import decode_hex_message
+    from dump1090_tpu_torch.models.hub import HubConfig, MessageHub
+    from dump1090_tpu_torch.models.tracker import AircraftTracker
+    from dump1090_tpu_torch.utils.synth import traffic_frames
+
+    lock = threading.RLock()
+    p = DemodPipeline(PipelineConfig(batch_buffers=1, dispatch_groups=1), clock=lambda: NOW,
+                      device="cpu", lock=lock)
+    p.stats.sbs_connections = 1  # tracking on
+    out = io.StringIO()
+    hub = MessageHub(HubConfig(), AircraftTracker(clock=lambda: NOW, msclock=lambda: NOW * 1000),
+                     p.stats, out=out)
+    used = [0]
+
+    def use(mm):
+        with lock:
+            hub.use_message(mm)
+            used[0] += mm.crcok
+
+    lines = ["*%s;\n" % f.hex() for f, _ in traffic_frames(61, 300)]
+
+    done = threading.Event()
+
+    def feed(k):
+        while not done.is_set():  # raw input for as long as the decode runs
+            for line in lines[k::4]:
+                with lock:
+                    mm = decode_hex_message(line, p.cache, p.cfg.decoder, p.stats)
+                    if mm is not None:
+                        use(mm)
+
+    threads = [threading.Thread(target=feed, args=(k % 4,)) for k in range(2 * (os.cpu_count() or 4))]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        p.run_device(io.BytesIO(capture), use)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=120)
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert used[0] > 500
+    assert sum(a.messages for a in hub.tracker.aircraft) == used[0]
+    text = out.getvalue().splitlines()
+    starts = [i for i, ln in enumerate(text) if ln.startswith("*")]
+    assert len(starts) == used[0]
+    assert all(text[i + 1].startswith("CRC: ") for i in starts)
