@@ -21,7 +21,18 @@ drives two paths over a synthetic dense capture, checking what comes out:
     --onlyaddr and a `python -m dump1090_tpu_torch` subprocess; the first
     64 buffers in three modes on the card against --device cpu; and the
     network services on loopback (raw out, raw in, SBS, /data.json) over
-    the first 64 buffers, on the card against the CPU.
+    the first 64 buffers, on the card against the CPU;
+  * the host-resolve path (kernel K1 in ops.demod.demod_batch, the
+    sequential resolve in the C++ runtime): DemodPipeline.run with
+    16-buffer batches over the whole capture against run_device, the CLI's
+    --raw --tpu-device-resolve off (stream_records) against the file
+    decode, the verbose CLI with the resolver off against on, the Python
+    twin against the C++ runtime on 64 buffers, --debug p, C and D on
+    tests/golden/debug_p_input.bin against the reference's goldens,
+    --debug cdj over 16 buffers on the card against the CPU (stdout and
+    frames.js), and decode_captures(device_resolve=False) on 16 captures
+    against the device strategy.  K1 is also held against its plain
+    version at this path's shapes: (1, 256), (16, 256) and (1, 1024).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -41,6 +52,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import socket
@@ -694,14 +706,59 @@ def _free_ports(n: int) -> list:
     return ports
 
 
-def _read_until(sock: socket.socket, suffix: bytes) -> bytes:
-    got = b""
-    while not got.endswith(suffix):
-        chunk = sock.recv(1 << 16)
-        if not chunk:
-            raise AssertionError("a network client was closed early")
-        got += chunk
-    return got
+NET_WAIT_S = 120.0  # the longest the net phase waits for one reply
+
+
+class _Client:
+    """A loopback client that reads on its own thread from the moment it
+    connects, as a real network client does, so the server never holds
+    data back for it; wait_for waits until what came in ends with a
+    suffix and, if it does not, says what came and what the services
+    looked like."""
+
+    def __init__(self, port: int, name: str, state):
+        import threading
+
+        self.name, self.state = name, state
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=NET_WAIT_S)
+        self.sock.settimeout(None)
+        self.data, self.eof, self.error = bytearray(), False, None
+        self._cv = threading.Condition()
+        self._thread = threading.Thread(target=self._read, name=f"client-{name}", daemon=True)
+        self._thread.start()
+
+    def _read(self) -> None:
+        while True:
+            try:
+                chunk = self.sock.recv(1 << 16)
+            except OSError as e:
+                chunk, self.error = b"", e
+            with self._cv:
+                self.data += chunk
+                self.eof = not chunk
+                self._cv.notify_all()
+            if not chunk:
+                return
+
+    def wait_for(self, suffix: bytes) -> bytes:
+        deadline = time.monotonic() + NET_WAIT_S
+        with self._cv:
+            while not self.data.endswith(suffix):
+                left = deadline - time.monotonic()
+                if self.eof or left <= 0:
+                    why = f"closed ({self.error!r})" if self.eof else f"silent for {NET_WAIT_S} s"
+                    raise AssertionError(
+                        f"the {self.name} client was {why} before {suffix!r}: "
+                        f"{len(self.data)} bytes, ending {bytes(self.data[-120:])!r}; "
+                        f"services {self.state()}")
+                self._cv.wait(left)
+            return bytes(self.data)
+
+    def close(self) -> None:
+        with contextlib.suppress(OSError):
+            self.sock.shutdown(socket.SHUT_RDWR)  # wakes the reading thread
+        self._thread.join()
+        self.sock.close()
 
 
 def net_phase(first64: Path, verbose64: bytes, dev: torch.device) -> dict:
@@ -744,14 +801,23 @@ def net_phase(first64: Path, verbose64: bytes, dev: torch.device) -> dict:
             hub = MessageHub(HubConfig(raw=True, net=True), AircraftTracker(), p.stats,
                              out=devnull)
             net = cli.network_services(o, hub, p.cache, DecoderConfig(), state_lock)
+
+            def state(net=net):
+                return {"loop_alive": net._thread.is_alive(), "raw_clients": len(net._raw_clients),
+                        "sbs_clients": len(net._sbs_clients), "pending": len(net._pending),
+                        "drain_scheduled": net._drain_scheduled}
+
             net.start()
+            clients = []
             try:
-                raw_c = socket.create_connection(("127.0.0.1", ro), timeout=30)
-                sbs_c = socket.create_connection(("127.0.0.1", sbs), timeout=30)
+                raw_c = _Client(ro, "raw-out", state)
+                clients.append(raw_c)
+                sbs_c = _Client(sbs, "SBS", state)
+                clients.append(sbs_c)
                 url = f"http://127.0.0.1:{http}/data.json"
-                if urllib.request.urlopen(url, timeout=30).read() != b"[\n]\n":
+                if urllib.request.urlopen(url, timeout=NET_WAIT_S).read() != b"[\n]\n":
                     raise AssertionError("/data.json before the decode is not empty")
-                deadline = time.monotonic() + 30  # time.time is frozen here
+                deadline = time.monotonic() + NET_WAIT_S  # time.time is frozen here
                 while (p.stats.sbs_connections, p.stats.http_requests) != (1, 1):
                     if time.monotonic() > deadline:
                         raise AssertionError("the SBS client or the HTTP request was not counted")
@@ -771,14 +837,14 @@ def net_phase(first64: Path, verbose64: bytes, dev: torch.device) -> dict:
                     torch.cuda.synchronize()
                     launches = dict(_cuda.launches)
                 wall = time.perf_counter() - t0
-                with socket.create_connection(("127.0.0.1", ri), timeout=30) as inp:
+                with socket.create_connection(("127.0.0.1", ri), timeout=NET_WAIT_S) as inp:
                     inp.sendall(probe_line)
-                    raw = _read_until(raw_c, probe_line.upper())
-                    sbs_b = _read_until(sbs_c, probe_sbs)
-                js = urllib.request.urlopen(url, timeout=30).read()
-                raw_c.close()
-                sbs_c.close()
+                    raw = raw_c.wait_for(probe_line.upper())
+                    sbs_b = sbs_c.wait_for(probe_sbs)
+                js = urllib.request.urlopen(url, timeout=NET_WAIT_S).read()
             finally:
+                for c in clients:
+                    c.close()
                 net.stop()
         runs[str(d)] = (raw, sbs_b, js, wall)
     card, cpu = runs[str(dev)], runs["cpu"]
@@ -793,6 +859,305 @@ def net_phase(first64: Path, verbose64: bytes, dev: torch.device) -> dict:
           "sbs_lines": card[1].count(b"\n"), "json_aircraft": card[2].count(b'"hex"'),
           "cuda_s": card[3], "cpu_s": cpu[3], "launches": launches})
     return launches
+
+
+def gather_shapes_phase(m: torch.Tensor) -> list:
+    """K1 against its plain version at the host-resolve path's shapes, on
+    the dense group's magnitudes: (16, 256), a 16-buffer batch; (1, 256),
+    one buffer (--debug, stdin, the per-row retry); (1, 1024), one buffer
+    demodulated again after an overflow.  Times of each."""
+    from dump1090_tpu_torch.ops.demod import front_candidates, pad_magnitudes
+    from dump1090_tpu_torch.ops.gather import WINDOW_PAD, gather_windows, gather_windows_plain
+
+    shapes = []
+    for b, mc in ((1, 256), (16, 256), (1, 1024)):
+        mb = m[:b].contiguous()
+        _, pos = front_candidates(mb, 131070, mc)
+        m_pad = pad_magnitudes(mb)
+        got = gather_windows(m_pad, pos)
+        err = max_abs_err(got, gather_windows_plain(m_pad, pos))
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"gather kernel differs from its plain version at {(b, mc)}: {err}")
+        m16 = m_pad.view(torch.int16)
+        bidx = torch.arange(b, device=pos.device)[:, None, None]
+        ar = torch.arange(WINDOW_PAD, device=pos.device)
+        moved = window_union_bytes(pos.cpu().numpy(), WINDOW_PAD) + pos.numel() * 4 + got.numel() * 2
+        shapes.append({"shape": [b, mc, WINDOW_PAD], "max_abs_err": err,
+                       "ms": cuda_ms(lambda: gather_windows(m_pad, pos), 200),
+                       "plain_ms": cuda_ms(lambda: gather_windows_plain(m_pad, pos), 50),
+                       "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                       "library_ms": cuda_ms(lambda: m16[bidx, pos[..., None] + ar], 50),
+                       "bytes_moved": moved})
+    emit({"phase": "kernel_gather_host_shapes", "bit_equal": True, "shapes": shapes})
+    return shapes
+
+
+def as_tuples(msgs: list) -> list:
+    """Every field of each message; a native RecordMessage is built into its
+    ModesMessage on the way."""
+    return [dataclasses.astuple(m) for m in msgs]
+
+
+def host_resolve_phase(path: Path, n_bufs: int, raw_want: bytes, dev: torch.device,
+                       tmp: Path) -> tuple:
+    """The host-resolve path at the CLI's file defaults for it, counted:
+    DemodPipeline(batch_buffers=16, native=True).run over the whole capture
+    on the card, every message field and the 8 counters equal to the
+    port's run_device on the same file; then cli.main with --raw
+    --tpu-device-resolve off (stream_records) byte-equal to the file
+    decode's --raw output.  The wall time split, measured from outside:
+    device demod (CUDA events around each demod_batch dispatch), fetch wait
+    (_Fetch.get), native resolve (resolve_blocks_records) and formatting
+    (records_to_messages).  Fails if the Python replay ran.  Returns the
+    launches of the run and of the CLI run."""
+    from dump1090_tpu_torch import native
+    from dump1090_tpu_torch.constants import BLOCK_SAMPLES
+    from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda
+
+    marks, host_s, python_calls = [], collections.defaultdict(float), [0]
+    real = {"batch": pl.demod_batch, "get": pl._Fetch.get, "py": pl.resolve_block,
+            "blocks": native.NativeResolver.resolve_blocks_records,
+            "to_msgs": native.records_to_messages}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            host_s[name] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def batch(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real["batch"](*a, **k)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+
+    def python_resolve(*a, **k):
+        python_calls[0] += 1
+        return real["py"](*a, **k)
+
+    pl.demod_batch, pl.resolve_block = batch, python_resolve
+    pl._Fetch.get = timed("fetch_wait_s", real["get"])
+    native.NativeResolver.resolve_blocks_records = timed("native_resolve_s", real["blocks"])
+    native.records_to_messages = timed("format_s", real["to_msgs"])
+    try:
+        p = DemodPipeline(PipelineConfig(batch_buffers=16), clock=lambda: NOW, device=dev,
+                          native=True)
+        msgs = []
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            p.run(f, msgs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+    finally:
+        pl.demod_batch, pl.resolve_block, pl._Fetch.get = real["batch"], real["py"], real["get"]
+        native.NativeResolver.resolve_blocks_records = real["blocks"]
+        native.records_to_messages = real["to_msgs"]
+    if p._native is None or python_calls[0]:
+        raise AssertionError(f"the Python replay ran ({python_calls[0]} blocks): native_used false")
+    demod_ms = [a.elapsed_time(b) for a, b in marks]
+    kernels = dispatch_kernels(path, dev)
+
+    ref = DemodPipeline(PipelineConfig(batch_buffers=64, dispatch_groups=8), clock=lambda: NOW,
+                        device=dev)
+    ref_msgs = []
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        ref.run_device(f, ref_msgs.append)
+    ref_wall = time.perf_counter() - t0
+    got = as_tuples(msgs)
+    if got != as_tuples(ref_msgs):
+        raise AssertionError("the host-resolve path's messages differ from run_device's")
+    if vars(p.stats) != vars(ref.stats):
+        raise AssertionError("the host-resolve path's counters differ from run_device's")
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    cli_s = run_cli(["--ifile", str(path), "--raw", "--tpu-device-resolve", "off"],
+                    tmp / "raw_off.txt")
+    cli_launches = dict(_cuda.launches)
+    if (tmp / "raw_off.txt").read_bytes() != raw_want:
+        raise AssertionError("--raw --tpu-device-resolve off differs from the file decode's --raw")
+    samples = n_bufs * BLOCK_SAMPLES
+    emit({"phase": "host_resolve", "buffers": n_bufs, "batch_buffers": 16, "samples": samples,
+          "messages": len(msgs), "crcok_messages": sum(m.crcok for m in msgs),
+          "equal_run_device": True, "stats_equal": True, "native_used": True,
+          "cli_raw_off_equal": True, "stats": vars(p.stats), "settled_mc": p._mc,
+          "wall_s": wall, "msps": samples / wall / 1e6, "dispatches": len(demod_ms),
+          "device_demod_s": sum(demod_ms) / 1e3, "device_demod_ms_per_dispatch":
+          [min(demod_ms), sum(demod_ms) / len(demod_ms), max(demod_ms)],
+          **{k: v for k, v in host_s.items()}, "event_span_share": sum(demod_ms) / 1e3 / wall,
+          "one_dispatch_kernels": kernels,
+          "run_device_wall_s": ref_wall, "cli_raw_off_s": cli_s,
+          "cli_raw_off_msps": samples / cli_s / 1e6, "launches": launches,
+          "cli_launches": cli_launches})
+    return launches, cli_launches
+
+
+def dispatch_kernels(path: Path, dev: torch.device) -> dict:
+    """The device work of one 16-buffer demod_batch dispatch alone, by
+    torch.profiler (CUPTI): its kernels and their summed device time,
+    beside the host's time to issue them.  None where the trace holds no
+    device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dump1090_tpu_torch.io.sources import iq_buffers
+    from dump1090_tpu_torch.ops.demod import demod_batch
+
+    with open(path, "rb") as f:
+        x = torch.from_numpy(np.stack([b for _, b in zip(range(16), iq_buffers(f))])).to(dev)
+    demod_batch(x, scan_len=131070, max_candidates=256)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        demod_batch(x, scan_len=131070, max_candidates=256)
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    if not kern:
+        return {"kernels": None, "device_ms": None, "issue_ms": issue_s * 1e3}
+    return {"kernels": len(kern), "device_ms": sum(e.self_device_time_total for e in kern) / 1e3,
+            "issue_ms": issue_s * 1e3}
+
+
+def host_resolve_python_phase(first64: Path, dev: torch.device) -> dict:
+    """The first 64 buffers on the host path with native=False (the Python
+    twin) against native=True, on the card: messages and counters equal."""
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda
+
+    runs, launches = {}, {}
+    for native in (True, False):
+        p = DemodPipeline(PipelineConfig(batch_buffers=16), clock=lambda: NOW, device=dev,
+                          native=native)
+        msgs = []
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with open(first64, "rb") as f:
+            p.run(f, msgs.append)
+        torch.cuda.synchronize()
+        runs[native] = (as_tuples(msgs), vars(p.stats), time.perf_counter() - t0)
+        if not native:
+            launches = dict(_cuda.launches)
+    if runs[True][:2] != runs[False][:2]:
+        raise AssertionError("the Python resolver differs from the native runtime")
+    emit({"phase": "host_resolve_python", "buffers": 64, "equal_native": True,
+          "messages": len(runs[False][0]), "python_s": runs[False][2],
+          "native_s": runs[True][2], "launches": launches})
+    return launches
+
+
+def debug_golden_phase(tmp: Path) -> dict:
+    """cli.main --debug p, C and D on the committed input on the card: each
+    byte-equal to the reference binary's own output."""
+    from dump1090_tpu_torch.ops import _cuda
+
+    golden = REPO / "tests" / "golden"
+    secs = {}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for flag, name in (("p", "golden_debug_p.txt"), ("C", "golden_debug_C_synth.txt"),
+                       ("D", "golden_debug_D_synth.txt")):
+        out = tmp / f"debug_{flag}.txt"
+        with contextlib.chdir(tmp):
+            secs[flag] = run_cli(["--ifile", str(golden / "debug_p_input.bin"), "--debug", flag],
+                                 out)
+        if out.read_bytes() != (golden / name).read_bytes():
+            raise AssertionError(f"--debug {flag} differs from tests/golden/{name}")
+    launches = dict(_cuda.launches)
+    emit({"phase": "debug_golden", "equal": ["golden_debug_p.txt", "golden_debug_C_synth.txt",
+                                             "golden_debug_D_synth.txt"],
+          "seconds": secs, "launches": launches})
+    return launches
+
+
+def debug_vs_cpu_phase(first16: Path, tmp: Path) -> dict:
+    """--debug cdj over the first 16 dense buffers through cli.main on the
+    card (counted) and with --device cpu: stdout and frames.js byte-equal."""
+    from dump1090_tpu_torch.ops import _cuda
+
+    outs, secs, launches = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        work = tmp / f"debug_{d}"
+        work.mkdir()
+        if d == "cuda":
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+        with contextlib.chdir(work):
+            secs[d] = run_cli(["--ifile", str(first16), "--device", d, "--debug", "cdj"],
+                              work / "stdout.txt")
+        if d == "cuda":
+            launches = dict(_cuda.launches)
+        outs[d] = ((work / "stdout.txt").read_bytes(), (work / "frames.js").read_bytes())
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError("--debug cdj on the card differs from --device cpu")
+    records = outs["cuda"][1].count(b"frames.push(")
+    if records == 0:
+        raise AssertionError("--debug cdj wrote no frames.js record")
+    emit({"phase": "debug_vs_cpu", "buffers": 16, "equal": True, "stdout_bytes": len(outs["cuda"][0]),
+          "frames_js_records": records, "frames_js_bytes": len(outs["cuda"][1]),
+          "cuda_s": secs["cuda"], "cpu_s": secs["cpu"], "launches": launches})
+    return launches
+
+
+def captures_host_phase(blocks: list, planted: list, dev: torch.device, n: int = 16) -> dict:
+    """decode_captures(device_resolve=False) on 16 of the multi-capture
+    phase's captures, on the card (counted): per capture, field for field,
+    equal to the device strategy, and every clean planted frame there."""
+    from dump1090_tpu_torch import decode_captures
+    from dump1090_tpu_torch.ops import _cuda
+
+    caps, want = captures_from_blocks(blocks, planted, n, lambda k: 4 + (5 * k) % 13, lambda k: k)
+    with frozen_clock():
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        host = decode_captures(caps, device=dev, device_resolve=False)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+        t0 = time.perf_counter()
+        on_dev = decode_captures(caps, device=dev)
+        dev_s = time.perf_counter() - t0
+    for k, (a, b) in enumerate(zip(host, on_dev)):
+        if as_tuples(a) != as_tuples(b):
+            raise AssertionError(f"capture {k}: the host strategy differs from the device strategy")
+    frames = check_planted(host, want)
+    emit({"phase": "decode_captures_host", "captures": n, "equal_device_strategy": True,
+          "buffers": sum(len(c) // 262144 for c in caps), "messages": sum(len(r) for r in host),
+          "planted_checked": frames, "host_strategy_s": host_s, "device_strategy_s": dev_s,
+          "launches": launches})
+    return launches
+
+
+def verbose_host_phase(first: Path, tmp: Path) -> None:
+    """The plain verbose CLI over the first group with the resolver on the
+    device (on: run_device, messages_from_device_arrays) and on the host
+    (off: native records, RecordMessage built lazily), in turns on, off,
+    off, on: byte-equal, with the wall time of each."""
+    outs, secs = {}, collections.defaultdict(list)
+    for k, mode in enumerate(("on", "off", "off", "on")):
+        out = tmp / f"verbose_{mode}_{k}.txt"
+        secs[mode].append(run_cli(["--ifile", str(first), "--tpu-device-resolve", mode], out))
+        outs.setdefault(mode, out.read_bytes())
+        out.unlink()
+    if outs["on"] != outs["off"]:
+        raise AssertionError("the verbose CLI differs between --tpu-device-resolve on and off")
+    emit({"phase": "verbose_host_vs_device", "buffers": 512, "equal": True,
+          "on_s": secs["on"], "off_s": secs["off"], "stdout_bytes": len(outs["on"])})
 
 
 def main() -> int:
@@ -834,6 +1199,7 @@ def main() -> int:
     m, n, pos = _group_front(xg, scan_len=131070, max_candidates=mc)
     walk_in, _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
     k1 = gather_phase(pad_magnitudes(m), pos)
+    gather_shapes_phase(m)
     del m, pos
     # sparse air: 10 frames per block at the same noise, tiled to one group
     sparse_blocks, _ = planted_capture(16, 10, seed=args.seed + 1)
@@ -968,6 +1334,26 @@ def main() -> int:
         vs_cpu_launches, verbose64 = verbose_vs_cpu_phase(first64, Path(tmp))
         net_launches = net_phase(first64, verbose64, dev)
 
+    # ---- the host-resolve path and the --debug dumps --------------------------
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        path = tmp / "capture.bin"
+        path.write_bytes(data[: args.groups * group_blocks * 262144])
+        host_launches, host_cli_launches = host_resolve_phase(path, n_blocks, out, dev, tmp)
+        path.unlink()
+        first = tmp / "first_group.bin"
+        first.write_bytes(data[: group_blocks * 262144])
+        verbose_host_phase(first, tmp)
+        first.unlink()
+        first64 = tmp / "first_64.bin"
+        first64.write_bytes(data[: 64 * 262144])
+        python_launches = host_resolve_python_phase(first64, dev)
+        first16 = tmp / "first_16.bin"
+        first16.write_bytes(data[: 16 * 262144])
+        debug_golden_launches = debug_golden_phase(tmp)
+        debug_cpu_launches = debug_vs_cpu_phase(first16, tmp)
+    captures_host_launches = captures_host_phase(blocks, planted, dev)
+
     paths = {
         "file_decode": (launches, ("gather_windows", "resolve_words")),
         "decode_captures": (captures_launches, ("gather_windows", "resolve_words_streams")),
@@ -975,6 +1361,12 @@ def main() -> int:
         "verbose_cli": (verbose_launches, ("gather_windows", "resolve_words")),
         "verbose_vs_cpu": (vs_cpu_launches, ("gather_windows", "resolve_words")),
         "net": (net_launches, ("gather_windows", "resolve_words")),
+        "host_resolve": (host_launches, ("gather_windows",)),
+        "host_resolve_cli": (host_cli_launches, ("gather_windows",)),
+        "host_resolve_python": (python_launches, ("gather_windows",)),
+        "debug_golden": (debug_golden_launches, ("gather_windows",)),
+        "debug_vs_cpu": (debug_cpu_launches, ("gather_windows",)),
+        "decode_captures_host": (captures_host_launches, ("gather_windows",)),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():

@@ -16,7 +16,10 @@ Entry points run on CUDA unless the caller asks for the CPU (`device="cpu"`,
 `--device cpu`); with no card and no such request they raise.  The kernels
 that the TPU package wrote in Pallas are hand-written CUDA C++ for Hopper
 (`csrc/`), built with nvcc at first use; on a CPU tensor each kernel wrapper
-runs its plain PyTorch version instead.
+runs its plain PyTorch version instead.  The host-resolve path
+(`DemodPipeline.run`, `--tpu-device-resolve off`, `--debug`) demodulates on
+the device and replays the sequential scan on the host, in a C++ runtime
+(`native/`, built with g++ at first use) or its Python twin.
 """
 
 import torch

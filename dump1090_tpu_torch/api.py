@@ -1,14 +1,19 @@
 """High-level decode API: captures in, decoded messages out (port of
-dump1090_tpu/api.py, device-resolve strategy).
+dump1090_tpu/api.py).
 
   * `decode_capture` — one capture (path/bytes/array/stream) -> list of
-    ModesMessage, through DemodPipeline.run_device.
-  * `decode_captures` — MANY independent captures decoded together: every
-    still-active capture adds its next buffers to one shared demod +
-    resolve dispatch (ops.resolve.demod_resolve_streams), and the
-    multi-stream resolver kernel walks each capture against its own ICAO
-    cache, one block per capture.  Per-capture results are bit-identical to
-    `decode_capture`.
+    ModesMessage, through DemodPipeline.run_device (device resolve, the
+    default) or DemodPipeline.run (host resolve).
+  * `decode_captures` — MANY independent captures decoded together.  Device
+    strategy (the default): every still-active capture adds its next
+    buffers to one shared demod + resolve dispatch
+    (ops.resolve.demod_resolve_streams), and the multi-stream resolver
+    kernel walks each capture against its own ICAO cache, one block per
+    capture.  Host strategy (device_resolve=False): each dispatch
+    demodulates one buffer of every still-active capture on the device
+    (ops.demod.demod_batch), and the host resolves each capture against
+    its own cache, with the C++ runtime or its Python twin.  Per-capture
+    results are bit-identical to `decode_capture` either way.
 
 Messages are ModesMessage objects (good and bad CRC, like the reference's
 useModesMessage stream); filter with `crcok_only=True` for the usable set.
@@ -28,10 +33,19 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .constants import BUF_SAMPLES, FULL_LEN_SAMPLES, ICAO_CACHE_LEN
+from .constants import BUF_SAMPLES, FULL_LEN_SAMPLES, ICAO_CACHE_LEN, SCAN_POSITIONS
 from .io.sources import iq_buffers
-from .models.decoder import DecoderConfig, ModesMessage, messages_from_device_arrays
-from .models.pipeline import DemodPipeline, PipelineConfig, _Fetch
+from .models.decoder import (
+    DecoderConfig,
+    DecoderStats,
+    IcaoCache,
+    ModesMessage,
+    messages_from_device_arrays,
+)
+from .models.pipeline import DemodPipeline, PipelineConfig, _Fetch, _upload
+from .models.resolver import BlockCandidates, resolve_block
+from .native import NativeResolver
+from .ops.demod import Candidates, demod_batch, demod_iq_block
 from .ops.resolve import demod_resolve_streams, streams_dispatch_shape
 
 # buffers each still-active capture adds to one decode_captures round
@@ -54,16 +68,24 @@ def decode_capture(
     config: DecoderConfig | None = None,
     crcok_only: bool = False,
     batch_buffers: int = 16,
+    device_resolve: bool | None = None,
     device: str | torch.device | None = None,
 ) -> list[ModesMessage]:
-    """Decode one IQ capture (path, bytes, uint8 array, or binary stream)
-    with the demodulator and the sequential resolver on the device."""
+    """Decode one IQ capture (path, bytes, uint8 array, or binary stream).
+
+    device_resolve: None or True run the sequential resolver on the device
+    too (DemodPipeline.run_device); False resolves on the host
+    (DemodPipeline.run, the C++ runtime when it builds).  The messages are
+    the same."""
     cfg = PipelineConfig(decoder=config or DecoderConfig(), batch_buffers=batch_buffers)
     p = DemodPipeline(cfg, device=device)
     out: list[ModesMessage] = []
     stream = _as_stream(capture)
     try:
-        p.run_device(stream, out.append)
+        if device_resolve is False:
+            p.run(stream, out.append)
+        else:
+            p.run_device(stream, out.append)
     finally:
         if stream is not capture:
             stream.close()
@@ -75,10 +97,15 @@ def decode_capture(
 @dataclass
 class _StreamState:
     """Per-capture host state of decode_captures: the messages decoded so
-    far, and whether the capture has run out."""
+    far and whether the capture has run out; on the host strategy also its
+    own ICAO cache, counters and resolver (each capture decodes as if
+    alone)."""
 
     messages: list = field(default_factory=list)
     done: bool = False
+    cache: IcaoCache = field(default_factory=IcaoCache)
+    stats: DecoderStats = field(default_factory=DecoderStats)
+    resolver: object = None
 
 
 def decode_captures(
@@ -93,17 +120,115 @@ def decode_captures(
     dispatch.  Per-capture results are bit-identical to `decode_capture`.
 
     device_resolve: None or True run the device-resolve strategy (see
-    _decode_captures_device).  False asks for the host-resolve strategy,
-    which is not ported yet and raises NotImplementedError."""
+    _decode_captures_device); False the host-resolve strategy (see
+    _decode_captures_host)."""
     if device_resolve is False:
-        raise NotImplementedError(
-            "decode_captures(device_resolve=False), the host-resolve strategy, "
-            "is not ported yet: see ROADMAP.md, 'Still to port', the "
-            "host-resolve path"
+        return _decode_captures_host(
+            captures, config=config, crcok_only=crcok_only, device=device
         )
     return _decode_captures_device(
         captures, config=config, crcok_only=crcok_only, device=device
     )
+
+
+def _decode_captures_host(
+    captures: Sequence, *, config: DecoderConfig | None, crcok_only: bool,
+    device: str | torch.device | None = None,
+) -> list[list[ModesMessage]]:
+    """decode_captures, host edition: each dispatch demodulates the next
+    buffer of EVERY still-active capture (ops.demod.demod_batch, the batch
+    axis being the captures), and each capture's row is resolved on the
+    host against that capture's own ICAO cache and counters, with the C++
+    runtime when it builds (else models/resolver.py).  Round N+1 is in
+    flight on the device while round N resolves.  A row whose exact count
+    overflows the candidate shape is demodulated again alone at 4x, and
+    the larger shape sticks for later rounds."""
+    dev = resolve_device(device)
+    dcfg = config or DecoderConfig()
+    mc_box = {"mc": PipelineConfig().max_candidates}
+    scan_len = BUF_SAMPLES - FULL_LEN_SAMPLES
+    buf_bytes = BUF_SAMPLES * 2
+
+    streams = [_as_stream(c) for c in captures]
+    iters = [iq_buffers(s) for s in streams]
+    states = [_StreamState() for _ in captures]
+    try:
+        for st in states:
+            st.resolver = NativeResolver()
+    except (OSError, RuntimeError):
+        pass  # the Python twin resolves every capture
+
+    try:
+        pending = None
+        while True:
+            x = np.full((len(captures), buf_bytes), 127, dtype=np.uint8)
+            live = []
+            for k, (it, st) in enumerate(zip(iters, states)):
+                if st.done:
+                    continue
+                buf = next(it, None)
+                if buf is None:
+                    st.done = True
+                else:
+                    x[k] = buf
+                    live.append(k)
+            work = None
+            if live:
+                cand = demod_batch(_upload(x, dev), scan_len=scan_len,
+                                   max_candidates=mc_box["mc"])
+                work = (_Fetch(list(cand)), live, x)
+            if pending is not None:
+                _resolve_rows(pending, states, dcfg, mc_box, dev)
+            if work is None:
+                break
+            pending = work
+    finally:
+        for s, c in zip(streams, captures):
+            if s is not c:
+                s.close()
+
+    results = []
+    for st in states:
+        msgs = st.messages
+        if crcok_only:
+            msgs = [m for m in msgs if m.crcok]
+        results.append(msgs)
+    return results
+
+
+def _redemod_with_retry(buf: np.ndarray, mc: int, mc_box: dict, dev) -> BlockCandidates:
+    """One buffer demodulated again alone with 4x the candidate room until
+    its exact preamble count fits; the larger shape sticks in mc_box."""
+    while True:
+        mc *= 4
+        big = demod_iq_block(_upload(buf, dev),
+                             scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, max_candidates=mc)
+        try:
+            bc = BlockCandidates.from_device(big)
+            mc_box["mc"] = max(mc_box["mc"], mc)
+            return bc
+        except OverflowError:
+            # every-other-position bound (adjacent preambles are excluded)
+            if mc >= SCAN_POSITIONS // 2 + 1:
+                raise
+
+
+def _resolve_rows(work, states, dcfg, mc_box, dev) -> None:
+    """Resolve the live rows of one fetched round, each against its
+    capture's own state."""
+    fetch, live, x = work
+    host = fetch.get()
+    for k in live:
+        row = Candidates(*(f[k] for f in host))
+        try:
+            bc = BlockCandidates.from_device(row)
+        except OverflowError:
+            bc = _redemod_with_retry(x[k], row.pos.shape[0], mc_box, dev)
+        st = states[k]
+        if st.resolver is not None:
+            st.resolver.resolve_block(bc, st.cache, dcfg, st.stats, st.messages.append)
+        else:
+            resolve_block(bc, st.cache, dcfg, st.stats, st.messages.append)
 
 
 def _decode_captures_device(

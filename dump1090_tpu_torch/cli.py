@@ -1,20 +1,24 @@
 """Command line interface of the port (a port of dump1090_tpu/cli.py): the
-file decode with the demodulator and the resolver on the device, and every
-output of the JAX package's CLI behind it.
+file decode with the demodulator on the device and the resolver on the
+device or the host, and every output of the JAX package's CLI behind it.
 
 Behavioral contract: main/showHelp/argv loop, dump1090.c:2787-3012.  Flags
-keep the reference's and the JAX package's spellings and semantics.  Pure
-`--raw` or `--stats` with no other consumer takes the bulk device path
-(DemodPipeline.stream_raw_device); every other run (the verbose display,
+keep the reference's and the JAX package's spellings and semantics.
+Routing, as in the JAX package: pure `--raw` or `--stats` with no other
+consumer takes the bulk device path (DemodPipeline.stream_raw_device); with
+`--tpu-device-resolve off`, pure `--raw` takes the bulk host path
+(stream_records, the C++ runtime); every other run (the verbose display,
 `--onlyaddr`, `--no-crc-check`, `--interactive`, `--net`) takes
-DemodPipeline.run_device and the message hub (tracker, display, SBS and
-raw TCP sinks).  `--net-only` does no device work.
+DemodPipeline.run_device and the message hub, or with `--tpu-device-resolve
+off` or `--debug` DemodPipeline.run (host resolve) and the hub.
+`--tpu-device-resolve auto` means on: the port's resolver kernels run on
+the card.  `--net-only` does no device work.
 
 `--device cuda|cpu` takes the place of `--tpu-backend`; the default is
 cuda, and without a card the CLI stops with an error rather than decoding
-on the CPU.  `--debug`, live RTL-SDR input (no `--ifile`) and the other
-options of the JAX package that are not ported stop with a "not yet ported"
-error: the port never gives a different output without saying so.
+on the CPU.  Live RTL-SDR input (no `--ifile`) and the other options of the
+JAX package that are not ported stop with a "not yet ported" error: the
+port never gives a different output without saying so.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ HELP = """\
 --no-fix                 Disable single-bits error correction using CRC.
 --no-crc-check           Disable messages with broken CRC (discouraged).
 --aggressive             More CPU for more messages (two bits fixes, ...).
+--debug <flags>          Debug mode (verbose), see README for details.
 --stats                  With --ifile print stats at exit. No other output.
 --onlyaddr               Show only ICAO addresses (testing purposes).
 --metric                 Use metric units (meters, km/h, ...).
@@ -47,27 +52,36 @@ HELP = """\
 --help                   Show this help.
 
 --tpu-max-candidates <n> Max preamble candidates per block (default: 256).
---tpu-batch <n>          IQ buffers per batch (default: 64 for files, 1
-                         for stdin).
+--tpu-batch <n>          IQ buffers per batch (default: 64 for files, 16
+                         with the resolver on the host, 1 for stdin).
 --tpu-dispatch-ahead <n> Dispatch groups held in flight before the oldest
                          is fetched (0 = auto: 3 for seekable files, 1
                          for stdin, looped or throttled input; identical
                          output).
 --tpu-state-load <file>  Restore tracker/ICAO-cache/stats snapshot at start.
 --tpu-state-save <file>  Save a state snapshot on exit (checkpoint/resume).
+--tpu-device-resolve <on|off|auto>
+                         Run the sequential resolver on the device (on,
+                         auto) or on the host (off: the C++ runtime).
 --device <name>          cuda (default) or cpu.
 
-Not yet ported to this package (use python -m dump1090_tpu): --debug, live
-RTL-SDR input (no --ifile) and its options, and --tpu-shard-time,
---tpu-front, --tpu-preload, --tpu-profile, --tpu-backend and
---tpu-device-resolve.
+Debug mode flags: d = Log frames decoded with errors
+                  D = Log frames decoded with zero errors
+                  c = Log frames with bad CRC
+                  C = Log frames with good CRC
+                  p = Log frames with bad preamble
+                  n = Log network debugging info
+                  j = Log frames to frames.js, loadable by debug.html.
+
+Not yet ported to this package (use python -m dump1090_tpu): live RTL-SDR
+input (no --ifile) and its options, and --tpu-shard-time, --tpu-front,
+--tpu-preload, --tpu-profile and --tpu-backend.
 """
 
 # the JAX package's CLI flags that are not ported here
 _UNPORTED_WITH_VALUE = {
-    "--device-index", "--gain", "--freq", "--ppm", "--debug", "--tpu-profile",
+    "--device-index", "--gain", "--freq", "--ppm", "--tpu-profile",
     "--tpu-backend", "--tpu-shard-time", "--tpu-front", "--tpu-preload",
-    "--tpu-device-resolve",
 }
 _UNPORTED = {"--enable-agc"}
 
@@ -110,6 +124,8 @@ class Options:
         self.dispatch_ahead = 0
         self.state_load: str | None = None
         self.state_save: str | None = None
+        self.debug = ""
+        self.device_resolve = "auto"
         self.device = "cuda"
 
 
@@ -176,6 +192,13 @@ def parse_args(argv: list[str]) -> Options:
             o.interactive_rows = _c_atoi(nxt())
         elif arg == "--interactive-ttl" and more:
             o.interactive_ttl = _c_atoi(nxt())
+        elif arg == "--debug" and more:
+            flags = nxt()
+            for f in flags:
+                if f not in "dDcCpnj":
+                    sys.stderr.write(f"Unknown debugging flag: {f}\n")
+                    raise SystemExit(1)
+            o.debug = flags
         elif arg == "--stats":
             o.stats = True
         elif arg == "--snip" and more:
@@ -190,6 +213,13 @@ def parse_args(argv: list[str]) -> Options:
             o.state_load = nxt()
         elif arg == "--tpu-state-save" and more:
             o.state_save = nxt()
+        elif arg == "--tpu-device-resolve" and more:
+            o.device_resolve = nxt()
+            if o.device_resolve not in ("on", "off", "auto"):
+                sys.stderr.write(
+                    f"--tpu-device-resolve: expected on|off|auto, got '{o.device_resolve}'.\n"
+                )
+                raise SystemExit(1)
         elif arg == "--device" and more:
             o.device = nxt()
             if o.device not in ("cuda", "cpu"):
@@ -285,6 +315,10 @@ def main(argv: list[str] | None = None) -> int:
     # emit callback takes it again around hub.use_message.
     state_lock = threading.RLock()
 
+    # --tpu-device-resolve auto means on: the resolver kernels run on the
+    # card
+    use_dev = o.device_resolve != "off"
+
     # the pipeline owns the cache and the stats in file mode; in net-only
     # mode there is no pipeline and no device work
     pipeline = None
@@ -292,8 +326,14 @@ def main(argv: list[str] | None = None) -> int:
         stats, cache = DecoderStats(), IcaoCache()
     else:
         from .models.pipeline import DemodPipeline, PipelineConfig
+        from .utils.debug import DebugFlags
 
-        batch = o.batch if o.batch is not None else (1 if o.filename == "-" else 64)
+        # batched dispatch for files; one buffer per dispatch for stdin.  The
+        # host-resolve path (--tpu-device-resolve off, --debug) takes 16
+        # buffers a batch and no dispatch groups, as in the JAX package
+        dev_batching = use_dev and not o.debug
+        batch = o.batch if o.batch is not None else (
+            1 if o.filename == "-" else 64 if dev_batching else 16)
         try:
             pipeline = DemodPipeline(
                 PipelineConfig(
@@ -302,12 +342,14 @@ def main(argv: list[str] | None = None) -> int:
                     # the reference slows --ifile playback in interactive
                     # mode (usleep(5000) per buffer, dump1090.c:471-477)
                     throttle_s=0.005 if o.interactive else 0.0,
-                    # 8 batches per dispatch group for files, 1 for stdin
-                    # and interactive feeds
-                    dispatch_groups=1 if o.interactive or o.filename == "-" else 8,
+                    # 8 batches per dispatch group for files on the device
+                    # path, 1 for stdin and interactive feeds
+                    dispatch_groups=(8 if dev_batching and not o.interactive
+                                     and o.filename != "-" else 1),
                     dispatch_ahead=o.dispatch_ahead,
                 ),
                 device=o.device, lock=state_lock,
+                debug_flags=DebugFlags.parse(o.debug) if o.debug else None,
             )
         except RuntimeError as e:
             sys.stderr.write(f"dump1090_tpu_torch: {e}\n")
@@ -380,21 +422,37 @@ def main(argv: list[str] | None = None) -> int:
                     _interactive_refresh(tracker, o, state_lock, tui_guard)
                     last_refresh[0] = now
 
-        # pure --raw / --stats with no other consumer: the bulk device path,
-        # which formats hex lines and builds no per-message objects
-        solo = not o.interactive and not o.net and not o.onlyaddr and o.check_crc
+        # pure --raw / --stats with no other consumer: the bulk paths, which
+        # format hex lines and build no per-message objects
+        solo = (not o.interactive and not o.net and not o.onlyaddr and o.check_crc
+                and not o.debug)
+        fast_dev = solo and (o.raw or o.stats) and use_dev
+        fast_raw = solo and o.raw and not o.stats and not use_dev and pipeline._native is not None
         try:
-            if solo and (o.raw or o.stats):
+            if fast_dev:
                 w = sys.stdout.buffer
                 for line in pipeline.stream_raw_device(stream):
                     # --stats mode emits nothing but the counters
                     if line and o.raw and not o.stats:
                         w.write(line)
                         w.flush()
-            else:
+            elif fast_raw:
+                from .native import records_to_raw_lines
+
+                w = sys.stdout.buffer
+                for rec in pipeline.stream_records(stream):
+                    line = records_to_raw_lines(rec)
+                    if line:
+                        w.write(line)
+                        w.flush()
+            elif use_dev and not o.debug:
                 # the full-fidelity hub path (verbose, tracker, SBS, net)
                 # with the sequential resolve on the device
                 pipeline.run_device(stream, on_message)
+            else:
+                # the hub path with the sequential resolve on the host;
+                # --debug dumps interleave with the display in scan order
+                pipeline.run(stream, on_message)
             if o.interactive:
                 # the final state stays visible
                 _interactive_refresh(tracker, o, state_lock, tui_guard)
@@ -448,7 +506,7 @@ def network_services(o: Options, hub, cache, dcfg, state_lock):
 
     net = NetworkServices(
         NetConfig(ro_port=o.ro_port, ri_port=o.ri_port, http_port=o.http_port,
-                  sbs_port=o.sbs_port),
+                  sbs_port=o.sbs_port, debug_net="n" in o.debug),
         on_raw_line=on_raw_line,
         data_json=lambda: disp.aircraft_json(hub.tracker, o.metric),
         on_http_request=lambda: bump("http_requests"),

@@ -1,17 +1,27 @@
-"""End-to-end decode on the device: IQ bytes -> `*<hex>;` lines
-(stream_raw_device, the --raw/--stats path) or ModesMessage objects
-(run_device), with the demodulator AND the sequential resolver on the card
-(port of the device half of dump1090_tpu/models/pipeline.py).
+"""End-to-end decode: IQ bytes -> `*<hex>;` lines or ModesMessage objects
+(port of dump1090_tpu/models/pipeline.py), by two strategies.
 
-Groups of `dispatch_groups` x `batch_buffers` buffers are uploaded, and each
-group runs ops.resolve.demod_resolve_group with the ICAO cache chained on
-the device from one group to the next.  Up to `dispatch_ahead` groups are
-in flight before the oldest is fetched: a group's small outputs are copied
+Device resolve (stream_raw_device, the --raw/--stats path, and run_device):
+the demodulator AND the sequential resolver run on the card.  Groups of
+`dispatch_groups` x `batch_buffers` buffers are uploaded, and each group
+runs ops.resolve.demod_resolve_group with the ICAO cache chained on the
+device from one group to the next.  Up to `dispatch_ahead` groups are in
+flight before the oldest is fetched: a group's small outputs are copied
 into pinned host memory with non-blocking copies and one CUDA event, so the
 host formats group k while the device computes k+1..k+depth.  Exact counts
 come back with the data; a group that overflowed its shapes grows them
 (sticky x4) and is replayed, with every group behind it, from the cache
 state it started from.
+
+Host resolve (run, run_source, messages, stream_records): the card
+demodulates `batch_buffers` buffers per dispatch (ops.demod.demod_batch, K1
+inside) and the host replays the sequential scan, with the C++ runtime
+(native/) or, for the --debug dumps, models/resolver.py.  Buffer N+1's
+demodulation and the fetch of its candidates are enqueued before the host
+waits on buffer N's, so the host resolves N while the card demodulates N+1,
+like the reference's reader/decoder thread pair (dump1090.c:436-527).  A
+buffer whose exact preamble count overflows the candidate shape is
+demodulated again alone at 4x (sticky), never truncated.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import contextlib
 import itertools
 import os
 import queue
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import BinaryIO, Callable, Iterator
@@ -29,9 +40,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..constants import BLOCK_SAMPLES, BUF_SAMPLES, FULL_LEN_SAMPLES
+from ..constants import BLOCK_SAMPLES, BUF_SAMPLES, FULL_LEN_SAMPLES, SCAN_POSITIONS
 from ..io.raw_lines import raw_lines_from_fields
 from ..io.sources import iq_buffers
+from ..ops.demod import (
+    Candidates,
+    demod_batch,
+    demod_block,
+    demod_iq_block,
+    preamble_reject_stages,
+)
+from ..ops.magnitude import magnitude_from_iq
 from ..ops.resolve import (
     clamp_packed_out,
     demod_resolve_group,
@@ -46,6 +65,7 @@ from .decoder import (
     ModesMessage,
     messages_from_device_arrays,
 )
+from .resolver import BlockCandidates, DebugContext, resolve_block
 from .state import state_from_numpy, state_to_numpy
 
 
@@ -56,7 +76,9 @@ class PipelineConfig:
     # buffer with more is detected by its exact count, the group is replayed
     # at 4x, and the session keeps the larger shape.
     max_candidates: int = 256
-    # Buffers per batch (one emission record per batch).
+    # Buffers per batch: one emission record per batch on the device path,
+    # one demod dispatch on the host path (the CLI takes 16 for files there;
+    # 1 is the lowest latency for live feeds).  Output is identical.
     batch_buffers: int = 1
     # --loop: read a seekable source again from its start at EOF, forever.
     loop: bool = False
@@ -103,6 +125,16 @@ class _Fetch:
         return [t.numpy() for t in self.tensors]
 
 
+def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host IQ bytes to the device: through pinned memory with a
+    non-blocking copy on CUDA, so the upload does not wait for the
+    demodulation already in flight."""
+    t = torch.from_numpy(x)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 class DemodPipeline:
     """Streaming demodulator over reference-geometry IQ buffers, on the
     device given by `device` (CUDA unless "cpu" is asked for)."""
@@ -113,14 +145,17 @@ class DemodPipeline:
     PRELOAD_CAP_BYTES = 1536 << 20
 
     def __init__(self, cfg: PipelineConfig | None = None, clock=None,
-                 device: str | torch.device | None = None, lock=None):
+                 device: str | torch.device | None = None, lock=None, *,
+                 native: bool | None = None, debug_flags=None, debug_out=None):
         self.cfg = cfg or PipelineConfig()
         self.device = resolve_device(device)
-        # held around each batch's emit calls: a caller that also decodes
-        # raw network input on another thread passes the same (reentrant)
-        # lock, so the two paths never interleave inside the tracker, the
-        # cache or stdout, like the single-threaded reference that polls
-        # its sockets between buffers (dump1090.c:2831-2847)
+        # held around each batch's emit calls (and, on the host path, around
+        # each resolve step, which mutates the shared cache and stats): a
+        # caller that also decodes raw network input on another thread
+        # passes the same (reentrant) lock, so the two paths never
+        # interleave inside the tracker, the cache or stdout, like the
+        # single-threaded reference that polls its sockets between buffers
+        # (dump1090.c:2831-2847)
         self._lock = lock if lock is not None else contextlib.nullcontext()
         # working shapes; sticky growth lives on the INSTANCE so a shared
         # PipelineConfig is not mutated
@@ -131,6 +166,32 @@ class DemodPipeline:
         self.stats = DecoderStats()
         self.samples_in = 0      # new samples demodulated (throughput meter)
         self.cache = IcaoCache(clock=clock)
+        self.debug_flags = debug_flags  # utils.debug.DebugFlags | None
+        self.debug_out = debug_out
+        # host resolver: the C++ runtime (native=None tries it, True
+        # requires it, False refuses it); the demod-dump flags (dDcCpj)
+        # take the Python replay, network debugging ('n') keeps native
+        self._native = None
+        if native is not False and not self._debugging:
+            from ..native import NativeResolver
+
+            try:
+                self._native = NativeResolver()
+            except (OSError, RuntimeError) as e:
+                if native is True:
+                    raise
+                sys.stderr.write(f"dump1090_tpu_torch: native runtime unavailable ({e}); "
+                                 "using the Python resolver\n")
+        # --debug p prints the scratch msg buffer's stale content; in the
+        # reference that is the previous detectModeS call's last sliced
+        # message (the same stack frame is reused), so it carries across
+        # buffers.  Before the very first slice it is C garbage, where zeros
+        # are printed (documented divergence).
+        self._debug_last_msg = None
+
+    @property
+    def _debugging(self) -> bool:
+        return self.debug_flags is not None and self.debug_flags.any_demod_dump
 
     def load_state(self, state) -> None:
         """Adopt a models.state.DecodeState: its ICAO cache and counters."""
@@ -426,3 +487,216 @@ class DemodPipeline:
         finally:
             stop.set()
             t.join(timeout=5.0)
+
+    # ---- host-resolve path: demod on the device, sequential resolve here ----
+
+    def _demod(self, buf: np.ndarray, max_candidates: int | None = None):
+        """Enqueue one buffer's demodulation and the fetch of its results;
+        returns the work item (buf, fetch).  The fetch yields the eight
+        Candidates fields and, when debugging, the magnitudes and the
+        preamble reject codes (the --debug dumps read both on the host)."""
+        mc = max_candidates or self._mc
+        scan_len = BUF_SAMPLES - FULL_LEN_SAMPLES
+        x = _upload(buf, self.device)
+        if not self._debugging:
+            cand = demod_iq_block(x, scan_len=scan_len, max_candidates=mc)
+            return buf, _Fetch(list(cand))
+        mag = magnitude_from_iq(x)
+        cand = demod_block(mag, scan_len=scan_len, max_candidates=mc)
+        rej = preamble_reject_stages(mag, scan_len=scan_len)
+        return buf, _Fetch([*cand, mag, rej])
+
+    def run(self, stream: BinaryIO, emit: Callable[[ModesMessage], None]) -> None:
+        """Decode a whole IQ stream on the host-resolve path, calling `emit`
+        for every message the reference would hand to useModesMessage."""
+        for _ in self._stream(stream, emit):
+            pass
+
+    def run_source(self, buffers, emit: Callable[[ModesMessage], None]) -> None:
+        """Decode an iterable of pre-framed uint8[BUF_BYTES] buffers (a live
+        source), one buffer per dispatch: buffer N+1's device work is
+        enqueued while N resolves on the host."""
+        pending = None
+        for buf in buffers:
+            self.samples_in += BLOCK_SAMPLES
+            work = self._demod(buf)
+            if pending is not None:
+                self._resolve(pending, emit)
+            pending = work
+        if pending is not None:
+            self._resolve(pending, emit)
+
+    def messages(self, stream: BinaryIO) -> Iterator[ModesMessage]:
+        """The messages of run, as a generator."""
+        out: list[ModesMessage] = []
+        yield from self._stream(stream, out.append, out)
+
+    @staticmethod
+    def _drain(drain: list | None):
+        if drain is not None:
+            yield from drain
+            drain.clear()
+
+    def _stream(self, stream, emit, drain: list | None = None):
+        if self.cfg.batch_buffers > 1 and not self._debugging:
+            yield from self._stream_batched(stream, emit, drain)
+            return
+        pending = None  # the previous buffer's work, in flight
+        for buf in iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s):
+            self.samples_in += BLOCK_SAMPLES
+            work = self._demod(buf)
+            if pending is not None:
+                self._resolve(pending, emit)
+                yield from self._drain(drain)
+            pending = work
+        if pending is not None:
+            self._resolve(pending, emit)
+            yield from self._drain(drain)
+
+    def _batches(self, stream):
+        """Generator of (x, fetch, n_real): `batch_buffers` buffers of the
+        stream per device dispatch, a short last batch padded with silence
+        (127, which yields zero candidates); each batch's demodulation and
+        the fetch of its Candidates are enqueued as it is yielded."""
+        nb = max(self.cfg.batch_buffers, 1)
+        it = iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
+        while bufs := list(itertools.islice(it, nb)):
+            n_real = len(bufs)
+            self.samples_in += n_real * BLOCK_SAMPLES
+            x = np.full((nb, bufs[0].shape[0]), 127, dtype=np.uint8)
+            x[:n_real] = np.stack(bufs)
+            cand = demod_batch(_upload(x, self.device),
+                               scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, max_candidates=self._mc)
+            yield x, _Fetch(list(cand)), n_real
+
+    def _stream_batched(self, stream, emit, drain: list | None = None):
+        """File-decode form of _stream: batch_buffers buffers per device
+        dispatch, rows resolved in stream order, batch N+1 in flight while
+        batch N resolves."""
+        pending = None
+        for work in self._batches(stream):
+            if pending is not None:
+                yield from self._resolve_batch(pending, emit, drain)
+            pending = work
+        if pending is not None:
+            yield from self._resolve_batch(pending, emit, drain)
+
+    def stream_records(self, stream: BinaryIO):
+        """Bulk host-resolve path: yield one packed native Record array per
+        buffer, in stream order, with no per-message Python objects.
+        Requires the native resolver (raises RuntimeError otherwise); the
+        CLI's pure --raw mode formats these vectorially."""
+        if self._native is None:
+            raise RuntimeError("stream_records requires the native resolver")
+        pending = None
+        batches = self._batches(stream)
+        while True:
+            work = next(batches, None)
+            if pending is not None:
+                x, fetch, n_real = pending
+                host = fetch.get()
+                with self._lock:
+                    batch = self._native_batch(host, n_real)
+                if batch is not None:
+                    records, counts = batch
+                    off = 0
+                    for c in counts.tolist():
+                        yield records[off : off + c]
+                        off += c
+                else:  # a row denser than the shape: row by row
+                    for b in range(n_real):
+                        bc = self._row_candidates(host, b, x[b])
+                        with self._lock:
+                            rec = self._native.resolve_block_records(
+                                bc, self.cache, self.cfg.decoder, self.stats
+                            )
+                        yield rec
+            if work is None:
+                return
+            pending = work
+
+    def _native_batch(self, host: list, n_real: int):
+        """The fetched batch's rows in ONE native call: (records, counts),
+        or None when a row overflowed the shape (found before the cache is
+        touched).  The caller holds the lock."""
+        try:
+            return self._native.resolve_blocks_records(
+                [f[:n_real] for f in host[1:]], host[0][:n_real],
+                self.cache, self.cfg.decoder, self.stats,
+            )
+        except OverflowError:
+            return None
+
+    def _resolve_block(self, bc: BlockCandidates, emit) -> None:
+        """One buffer's candidates through the C++ runtime or its Python
+        twin.  The caller holds the lock."""
+        if self._native is not None:
+            self._native.resolve_block(bc, self.cache, self.cfg.decoder, self.stats, emit)
+        else:
+            resolve_block(bc, self.cache, self.cfg.decoder, self.stats, emit)
+
+    def _row_candidates(self, host: list, b: int, buf: np.ndarray) -> BlockCandidates:
+        """Row b of a fetched batch as BlockCandidates; a row that
+        overflowed the shape is demodulated again alone with more room."""
+        row = Candidates(*(f[b] for f in host))
+        try:
+            return BlockCandidates.from_device(row)
+        except OverflowError:
+            return self._demod_retry(buf, row.pos.shape[0])[1]
+
+    def _resolve_batch(self, work, emit, drain: list | None):
+        from ..native import records_to_messages
+
+        x, fetch, n_real = work
+        host = fetch.get()  # all eight fields, one event
+        if self._native is not None:
+            with self._lock:
+                batch = self._native_batch(host, n_real)
+                if batch is not None:
+                    for mm in records_to_messages(batch[0]):
+                        emit(mm)
+            if batch is not None:
+                yield from self._drain(drain)
+                return
+        for b in range(n_real):  # the Python twin, or a dense row
+            bc = self._row_candidates(host, b, x[b])
+            with self._lock:
+                self._resolve_block(bc, emit)
+            yield from self._drain(drain)
+
+    def _demod_retry(self, buf: np.ndarray, mc: int):
+        """Demodulate one buffer again with 4x the candidate room until its
+        exact preamble count fits; returns (fetched fields, BlockCandidates).
+        The larger shape sticks for the rest of the session, so sustained
+        dense air retries once, not per buffer."""
+        while True:
+            mc *= 4
+            host = self._demod(buf, max_candidates=mc)[1].get()
+            try:
+                bc = BlockCandidates.from_device(Candidates(*host[:8]))
+                self._mc = max(self._mc, mc)
+                return host, bc
+            except OverflowError:
+                # true ceiling: the preamble predicate forbids adjacent
+                # hits, so a buffer holds at most every other position
+                if mc >= SCAN_POSITIONS // 2 + 1:
+                    raise
+
+    def _resolve(self, work, emit) -> None:
+        buf, fetch = work
+        host = fetch.get()
+        try:
+            bc = BlockCandidates.from_device(Candidates(*host[:8]))
+        except OverflowError:
+            host, bc = self._demod_retry(buf, host[1].shape[0])
+        if not self._debugging:
+            with self._lock:
+                self._resolve_block(bc, emit)
+            return
+        debug = DebugContext(flags=self.debug_flags, mag=host[8], reject_code=host[9],
+                             out=self.debug_out)
+        if self._debug_last_msg is not None:
+            debug.last_msg = self._debug_last_msg
+        with self._lock:
+            resolve_block(bc, self.cache, self.cfg.decoder, self.stats, emit, debug)
+        self._debug_last_msg = debug.last_msg

@@ -22,9 +22,16 @@ with no approximation:
 
 Everything is vectorized over all candidates of a dispatch group: tensors
 are (N, ...) with N = buffers x max_candidates.
+
+demod_batch, demod_block and demod_iq_block return the whole per-buffer
+result as Candidates, the host-resolve path's device output: the sequential
+skip rule and the ICAO cache are then replayed on the host (the C++ runtime
+in native/, or models/resolver.py for the --debug dumps).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -36,21 +43,35 @@ from ..constants import (
     SHORT_MSG_BITS,
 )
 from .gather import WINDOW_PAD, gather_windows
+from .magnitude import magnitude_from_iq, magnitude_from_pairs
 
 WINDOW = FULL_LEN_SAMPLES + 1  # 241: one leading sample (m[j-1]) + preamble + frame
 
 
-def preamble_mask(m: torch.Tensor, scan_len: int) -> torch.Tensor:
-    """The preamble predicate at every scan position of every row.
+class Candidates(NamedTuple):
+    """Compacted per-buffer demodulation results, fixed shape and padded:
+    torch tensors on the device, or their numpy copies on the host.  Shapes
+    are per buffer ([] and [C]) or per batch ([B] and [B, C])."""
 
-    Contract: dump1090.c:1602-1650.  `m` is int32 (B, S); returns bool
-    (B, scan_len) with scan_len = S - FULL_LEN_SAMPLES (the reference scans
-    j < mlen - MODES_FULL_LEN*2, dump1090.c:1593)."""
+    n: torch.Tensor        # int32, number of preambles (may exceed C: overflow)
+    pos: torch.Tensor      # [C] int32 scan position of each candidate
+    msg1: torch.Tensor     # [C, 14] uint8 packed frame, uncorrected pass
+    errors1: torch.Tensor  # [C] int32 demod-error count, uncorrected pass
+    gate1: torch.Tensor    # [C] bool noise-gate pass, uncorrected pass
+    msg2: torch.Tensor     # [C, 14] uint8 packed frame, phase-corrected pass
+    errors2: torch.Tensor  # [C] int32
+    gate2: torch.Tensor    # [C] bool
+
+
+def _preamble_stages(m: torch.Tensor, scan_len: int):
+    """The three tests of the preamble predicate at every scan position of
+    the last axis of int32 `m`: the 10-sample relational test, the 3..6
+    high-level test and the 10..15 quiet-tail test (dump1090.c:1602-1650)."""
 
     def s(k: int) -> torch.Tensor:
-        return m[:, k : k + scan_len]
+        return m[..., k : k + scan_len]
 
-    c = (
+    stage1 = (
         (s(0) > s(1))
         & (s(1) < s(2))
         & (s(2) > s(3))
@@ -63,9 +84,30 @@ def preamble_mask(m: torch.Tensor, scan_len: int) -> torch.Tensor:
         & (s(9) > s(6))
     )
     high = (s(0) + s(2) + s(7) + s(9)) // 6
-    c &= (s(4) < high) & (s(5) < high)
-    c &= (s(11) < high) & (s(12) < high) & (s(13) < high) & (s(14) < high)
-    return c
+    stage2 = (s(4) < high) & (s(5) < high)
+    stage3 = (s(11) < high) & (s(12) < high) & (s(13) < high) & (s(14) < high)
+    return stage1, stage2, stage3
+
+
+def preamble_mask(m: torch.Tensor, scan_len: int) -> torch.Tensor:
+    """The preamble predicate at every scan position of every row.
+
+    Contract: dump1090.c:1602-1650.  `m` is int32 (B, S); returns bool
+    (B, scan_len) with scan_len = S - FULL_LEN_SAMPLES (the reference scans
+    j < mlen - MODES_FULL_LEN*2, dump1090.c:1593)."""
+    stage1, stage2, stage3 = _preamble_stages(m, scan_len)
+    return stage1 & stage2 & stage3
+
+
+def preamble_reject_stages(m: torch.Tensor, *, scan_len: int) -> torch.Tensor:
+    """Debug-mode companion of preamble_mask: the uint8 rejection code of
+    each scan position of int32 magnitudes (..., S) -- 0 pass, 1 failed the
+    10-sample relational test, 2 failed the 3..6 high-level test, 3 failed
+    the 10..15 quiet-tail test.  Mirrors the reference's three --debug p
+    dump sites (dump1090.c:1602-1650)."""
+    stage1, stage2, stage3 = _preamble_stages(m, scan_len)
+    code = torch.where(~stage1, 1, torch.where(~stage2, 2, torch.where(~stage3, 3, 0)))
+    return code.to(torch.uint8)
 
 
 def first_k_positions(mask: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -256,3 +298,43 @@ def gather_candidate_windows(m: torch.Tensor, pos: torch.Tensor) -> torch.Tensor
     """Fetch (B, MC, 256) uint16 candidate windows from int32 magnitudes
     (B, S); window index 0 holds m[pos-1] (zero at the stream head)."""
     return gather_windows(pad_magnitudes(m), pos)
+
+
+def _candidate_passes(m: torch.Tensor, pos: torch.Tensor):
+    """Windows (K1) and both demod passes of every candidate of int32
+    magnitudes (B, S) at int32 positions (B, MC): the six per-candidate
+    fields of Candidates, shaped (B, MC, ...)."""
+    b, mc = pos.shape
+    w = gather_candidate_windows(m, pos)
+    outs = candidate_passes_window(w.reshape(b * mc, -1), pos.reshape(-1))
+    return [o.reshape((b, mc) + tuple(o.shape[1:])) for o in outs]
+
+
+def demod_batch(iq_buffers: torch.Tensor, *, scan_len: int, max_candidates: int) -> Candidates:
+    """Batched demodulation of (B, nbytes) uint8 IQ buffers, or of the same
+    wire bytes as (B, nbytes/2) uint16 I|Q<<8 pairs: magnitudes, the front
+    (exact count and first-K positions), the window gather (K1) and both
+    demod passes, with every field shaped (B, ...).  Nothing syncs the
+    host.  Port of dump1090_tpu/parallel/sharding.py::demod_batch (the
+    single-device form; the sharded forms are not ported)."""
+    if iq_buffers.dtype == torch.uint16:
+        m = magnitude_from_pairs(iq_buffers)
+    else:
+        m = magnitude_from_iq(iq_buffers)
+    n, pos = front_candidates(m, scan_len, max_candidates)
+    return Candidates(n, pos, *_candidate_passes(m, pos))
+
+
+def demod_block(m: torch.Tensor, *, scan_len: int, max_candidates: int = 512) -> Candidates:
+    """Demodulate one magnitude block: int32 (S,) -> Candidates of one
+    buffer (n is a 0-d tensor).  scan_len: number of scan positions
+    (reference: S - 240, dump1090.c:1593)."""
+    n, pos = front_candidates(m[None], scan_len, max_candidates)
+    return Candidates(n[0], pos[0], *(f[0] for f in _candidate_passes(m[None], pos)))
+
+
+def demod_iq_block(iq_bytes: torch.Tensor, *, scan_len: int, max_candidates: int = 512) -> Candidates:
+    """One buffer of uint8 IQ bytes -> Candidates of one buffer:
+    demod_batch over a batch of one."""
+    cand = demod_batch(iq_bytes[None], scan_len=scan_len, max_candidates=max_candidates)
+    return Candidates(*(f[0] for f in cand))

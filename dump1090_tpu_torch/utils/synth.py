@@ -342,3 +342,53 @@ def traffic_frames(seed: int, n: int, *, n_aircraft: int = 12,
             me = bytes([(tc << 3) | sub]) + rng.bytes(6)
             finish(es(18 if rng.random() < 0.15 else 17, addr, me))
     return out[:n]
+
+
+def traffic_capture(
+    n_blocks: int,
+    frames_per_block: int,
+    *,
+    seed: int,
+    noise_sigma: float = 3.0,
+    amplitude: tuple[float, float] = (20.0, 100.0),
+    margin: int = 300,
+    blank_every: int = 0,
+) -> tuple[bytes, list[tuple[int, int, bytes]]]:
+    """A synthetic capture of mixed Mode S traffic: the frames of
+    traffic_frames(seed, ...) (every DF, 0-2 flipped bits, CPR pairs)
+    modulated `frames_per_block` to a block, each in its own equal slot of
+    the block at a random offset, amplitude and carrier phase, over
+    Gaussian noise.  With `blank_every` k > 0, every k-th frame has its
+    first bit cell silenced (both samples at zero magnitude), so both its
+    demodulation passes end in a demod error.  Returns (IQ bytes, planted)
+    with planted = [(block, sample offset of the preamble in the block,
+    frame bytes)] in stream order."""
+    from ..constants import BLOCK_SAMPLES
+
+    frames = [f for f, _ in traffic_frames(seed, n_blocks * frames_per_block)]
+    rng = np.random.default_rng(seed + 1)
+    slot = (BLOCK_SAMPLES - 2 * margin) // max(frames_per_block, 1)
+    longest = len(PREAMBLE_PATTERN) + 2 * LONG_MSG_BITS
+    if slot < longest + margin:
+        raise ValueError(f"{frames_per_block} frames do not fit one block")
+    blocks, planted = [], []
+    for b in range(n_blocks):
+        i = rng.normal(0.0, noise_sigma, BLOCK_SAMPLES)
+        q = rng.normal(0.0, noise_sigma, BLOCK_SAMPLES)
+        for k, f in enumerate(frames[b * frames_per_block:(b + 1) * frames_per_block]):
+            env = envelope(f)
+            off = margin + k * slot + int(rng.integers(0, slot - longest - margin + 1))
+            if blank_every and len(planted) % blank_every == 0:
+                h = off + len(PREAMBLE_PATTERN)  # the first bit cell
+                env[h - off : h - off + 2] = 0.0
+                i[h : h + 2] = q[h : h + 2] = 0.0
+            planted.append((b, off, f))
+            amp = float(rng.uniform(*amplitude))
+            phase = float(rng.uniform(0.0, 2 * np.pi))
+            i[off : off + len(env)] += amp * np.cos(phase) * env
+            q[off : off + len(env)] += amp * np.sin(phase) * env
+        iq = np.empty(2 * BLOCK_SAMPLES, dtype=np.float64)
+        iq[0::2] = i
+        iq[1::2] = q
+        blocks.append(np.clip(np.round(iq) + 127, 0, 255).astype(np.uint8))
+    return np.concatenate(blocks).tobytes() if blocks else b"", planted

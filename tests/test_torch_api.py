@@ -2,7 +2,8 @@
 DemodPipeline.run_device, api.decode_capture and api.decode_captures (the
 device-resolve strategy), field for field, with the clock frozen in both.
 Also: each batched capture equals its solo decode, forced tiling and forced
-candidate growth change nothing, and the host-resolve strategy refuses."""
+candidate growth change nothing, and the host-resolve strategy
+(device_resolve=False) equals the JAX package's and the device strategy."""
 
 import dataclasses
 import functools
@@ -137,7 +138,38 @@ def test_decode_captures_candidate_growth(captures, frozen, monkeypatch):
     assert calls[0] == 16 and max(calls) > 16
 
 
-def test_decode_captures_host_resolve_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.decode_captures([b"\x7f" * 1000], device_resolve=False, device="cpu")
+def test_decode_captures_host_resolve_not_ported(captures, frozen):
+    """The host-resolve strategy, once refused, is ported: it decodes, and
+    an empty list of captures gives an empty list."""
+    got = tapi.decode_captures(captures[1:2], device_resolve=False, device="cpu")
+    assert [_dicts(s) for s in got] == [_dicts(tapi.decode_capture(captures[1], device="cpu"))]
+    assert tapi.decode_captures([], device_resolve=False, device="cpu") == []
+    assert tapi.decode_captures([b"\x7f" * 1000], device_resolve=False, device="cpu") == [[]]
     assert tapi.decode_captures([], device="cpu") == []
+
+
+@pytest.mark.parametrize("mc", [256, 16])
+def test_decode_captures_host_matches_jax_and_device(captures, jax_batched, frozen, monkeypatch,
+                                                    mc):
+    """decode_captures(device_resolve=False) against the JAX package's host
+    strategy and against the port's device strategy, per capture and field
+    for field; from max_candidates 16 every round overflows at first and
+    rows are demodulated again alone, in both packages."""
+    monkeypatch.setattr(japi, "PipelineConfig", functools.partial(JaxPipelineConfig,
+                                                                  max_candidates=mc))
+    monkeypatch.setattr(tapi, "PipelineConfig", functools.partial(PipelineConfig,
+                                                                  max_candidates=mc))
+    got = tapi.decode_captures(captures, device_resolve=False, device="cpu")
+    want = japi.decode_captures(captures, device_resolve=False)
+    assert [_dicts(s) for s in got] == [_dicts(s) for s in want]
+    assert [_dicts(s) for s in got] == jax_batched
+    crc = tapi.decode_captures(captures, crcok_only=True, device_resolve=False, device="cpu")
+    assert [_dicts(s) for s in crc] == [[d for d in s if d["crcok"]] for s in jax_batched]
+
+
+def test_decode_capture_host_resolve_matches_jax(captures, frozen):
+    for cap in captures[:2]:
+        got = tapi.decode_capture(cap, device_resolve=False, device="cpu")
+        want = japi.decode_capture(cap, device_resolve=False)
+        assert _dicts(got) == _dicts(want) and len(got) > 100
+        assert _dicts(got) == _dicts(tapi.decode_capture(cap, device="cpu"))

@@ -6,8 +6,11 @@ on a seeded synthetic capture with fixed frames: --raw and --stats (the
 bulk device path), and the plain verbose display, --onlyaddr,
 --raw --no-crc-check, --stats --onlyaddr and --onlyaddr --metric (the
 message hub over run_device).  Only stdout is compared: the throughput
-meter goes to stderr.  Also --tpu-state-save/--tpu-state-load, --net-only
-(which needs no card), --snip and what the port refuses."""
+meter goes to stderr.  With --tpu-device-resolve off (the resolver on the
+host: stream_records for --raw, DemodPipeline.run for the rest) --raw,
+--stats and the verbose display equal the device-resolve output and the
+JAX CLI's own host path.  Also --tpu-state-save/--tpu-state-load,
+--net-only (which needs no card), --snip and what the port refuses."""
 
 import concurrent.futures
 import json
@@ -195,7 +198,7 @@ def test_snip_equals_jax(golden_dir):
 def test_cli_refuses_what_is_not_ported(capsys):
     from dump1090_tpu_torch.cli import parse_args
 
-    for args in (["--ifile", "x.bin", "--raw", "--debug", "d"],
+    for args in (["--ifile", "x.bin", "--raw", "--tpu-front", "mask"],
                  ["--raw"],  # live RTL-SDR input
                  ["--ifile", "x.bin", "--gain", "10"],
                  ["--ifile", "x.bin", "--tpu-shard-time", "2"]):
@@ -213,6 +216,13 @@ def test_cli_refuses_what_is_not_ported(capsys):
     assert (o.interactive_rows, o.interactive_ttl, o.ro_port, o.ri_port, o.http_port,
             o.sbs_port, o.state_load, o.state_save) == (9, 5, 1, 2, 3, 4, "a", "b")
     assert parse_args(["--net-only"]).net_only and parse_args(["--snip", "3"]).snip == 3
+    o = parse_args(["--ifile", "x.bin", "--debug", "cn", "--tpu-device-resolve", "off"])
+    assert (o.debug, o.device_resolve) == ("cn", "off")
+    assert parse_args(["--ifile", "x.bin"]).device_resolve == "auto"
+    with pytest.raises(SystemExit) as e:
+        parse_args(["--ifile", "x.bin", "--tpu-device-resolve", "maybe"])
+    assert e.value.code == 1
+    assert "expected on|off|auto" in capsys.readouterr().err
     with pytest.raises(SystemExit) as e:
         parse_args(["--bogus"])
     assert e.value.code == 1
@@ -280,3 +290,22 @@ def test_sigwinch_rereads_rows_and_redraws(capsys):
         assert "Flight" in capsys.readouterr().out
     finally:
         signal.signal(signal.SIGWINCH, old)
+
+
+@pytest.mark.parametrize("mode", ["raw", "stats", "verbose"])
+@pytest.mark.parametrize("name", ["golden", "synth"])
+def test_host_resolve_cli_equals_device_resolve_and_jax(outputs, golden_dir, synth_path,
+                                                        monkeypatch, tmp_path, name, mode):
+    """--tpu-device-resolve off, in this process: the port's output equals
+    its device-resolve output and the JAX CLI's (device resolve, and on the
+    synthetic capture also the JAX CLI's own host path)."""
+    import dump1090_tpu.cli as jcli
+    import dump1090_tpu_torch.cli as tcli
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jaxcache"))
+    path = golden_dir / "debug_p_input.bin" if name == "golden" else synth_path
+    args = ["--ifile", str(path), *MODES[mode], "--tpu-device-resolve", "off"]
+    got = _main_inprocess(tcli.main, ["--device", "cpu", *args])
+    assert got == outputs[(name, "port", mode)] == outputs[(name, "jax", mode)]
+    if name == "synth":
+        assert got == _main_inprocess(jcli.main, ["--tpu-backend", "cpu", *args])

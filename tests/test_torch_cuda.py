@@ -5,6 +5,7 @@ carry the `cuda` marker and skip without a card.  On a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
 import io
 
 import numpy as np
@@ -203,3 +204,47 @@ def test_hub_over_run_device_on_card_equals_cpu(cuda):
             assert launches["gather_windows"] > 0 and launches["resolve_words"] > 0
     assert outs["cuda"] == outs["cpu"]
     assert outs["cuda"][0].count("CRC: ") > 300 and outs["cuda"][1]
+
+
+def test_host_path_on_card_equals_cpu_with_k1_checked_at_its_shapes(cuda, monkeypatch):
+    """The host-resolve path (DemodPipeline.run, native runtime) on one
+    group of 16 dense buffers, in 16-buffer batches and one buffer at a
+    time, on the card against the CPU run.  Every K1 launch on the card is
+    held against gather_windows_plain: at (16, 256), at (1, 256), and at
+    (1, 1024) after the forced retry of a buffer with more than 256
+    preambles."""
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops import demod as td
+    from dump1090_tpu_torch.ops.gather import gather_windows_plain
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    shapes = []
+    real = td.gather_windows
+
+    def checked(m_pad, pos):
+        out = real(m_pad, pos)
+        if out.is_cuda:
+            shapes.append(tuple(pos.shape))
+            assert torch.equal(out.view(torch.int16), gather_windows_plain(m_pad, pos).view(torch.int16))
+        return out
+
+    monkeypatch.setattr(td, "gather_windows", checked)
+    dense, _ = planted_capture(14, 150, seed=31)
+    denser, _ = planted_capture(2, 240, seed=32)  # more than 256 preambles a buffer
+    data = dense + denser
+    for nb in (16, 1):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            p = DemodPipeline(PipelineConfig(batch_buffers=nb), clock=lambda: NOW, device=dev,
+                              native=True)
+            msgs = []
+            _cuda.reset_launches()
+            p.run(io.BytesIO(data), msgs.append)
+            # a native record becomes its ModesMessage on the way
+            outs[dev] = ([dataclasses.astuple(m) for m in msgs], p.stats, p._mc)
+            if dev == "cuda":
+                assert _cuda.launches["gather_windows"] > 0
+        assert outs["cuda"] == outs["cpu"] and outs["cuda"][2] == 1024
+        assert sum(m.crcok for m in msgs) > 2000
+    assert {(16, 256), (1, 256), (1, 1024)} <= set(shapes)

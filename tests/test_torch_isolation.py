@@ -1,7 +1,9 @@
 """The port stands alone: no file of dump1090_tpu_torch/ (nor chip_smoke.py)
-imports jax or dump1090_tpu, it decodes (file decode, decode_captures and
-the message hub over run_device) with both made unimportable, and its
-entry points refuse to fall back to the CPU when no card is present."""
+imports jax or dump1090_tpu, it decodes (file decode, decode_captures, the
+message hub over run_device, and the host-resolve path with its C++
+runtime, its Python twin and the --debug dumps) with both made
+unimportable, and its entry points refuse to fall back to the CPU when no
+card is present."""
 
 import ast
 import subprocess
@@ -67,6 +69,21 @@ assert [ln for ln in text.getvalue().splitlines() if ln.startswith("*")] \
     == [w.decode() for w in want.split()]
 assert sbs and all(line.startswith("MSG,") for line in sbs)
 assert len(hub.tracker.aircraft) > 0 and state.snapshot(hub.tracker, p.cache, p.stats)
+# the host-resolve path: the C++ runtime (built from the port's own copy),
+# its Python twin with the --debug dumps, and decode_captures' host strategy
+from dump1090_tpu_torch.native import records_to_raw_lines
+from dump1090_tpu_torch.utils.debug import DebugFlags
+h = DemodPipeline(PipelineConfig(batch_buffers=16), device="cpu", clock=lambda: 1_700_000_000,
+                  native=True)
+assert b"".join(map(records_to_raw_lines, h.stream_records(io.BytesIO(data)))) == want
+dump = io.StringIO()
+d = DemodPipeline(PipelineConfig(), device="cpu", clock=lambda: 1_700_000_000,
+                  debug_flags=DebugFlags.parse("C"), debug_out=dump)
+d.run(io.BytesIO(data), lambda mm: None)
+assert dump.getvalue().count("--- Decoded with good CRC") == 20
+host = dump1090_tpu_torch.decode_captures([data], crcok_only=True, device="cpu",
+                                          device_resolve=False)
+assert [m.msg for m in host[0]] == [m.msg for m in msgs[0]]
 assert not any(m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
                for m, v in sys.modules.items() if v is not None)
 print("ok", p.stats.goodcrc)
@@ -89,7 +106,13 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
         decode_captures([b"\x7f" * 1000])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_capture(b"\x7f" * 1000)
-    for flags in (["--raw"], [], ["--onlyaddr", "--net"]):  # bulk path, hub path
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # the host strategy
+        decode_captures([b"\x7f" * 1000], device_resolve=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_capture(b"\x7f" * 1000, device_resolve=False)
+    # bulk path, hub path, and the host-resolve and --debug paths
+    for flags in (["--raw"], [], ["--onlyaddr", "--net"], ["--raw", "--tpu-device-resolve", "off"],
+                  ["--debug", "D"]):
         r = subprocess.run(
             [sys.executable, "-m", "dump1090_tpu_torch", "--ifile",
              str(REPO / "tests" / "golden" / "debug_p_input.bin"), *flags],

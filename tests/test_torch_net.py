@@ -178,6 +178,38 @@ def test_stalled_client_dropped_at_buffer_bound(services):
         live.close()
 
 
+def test_paused_readers_get_every_line_then_the_raw_input(services):
+    """Raw-out and SBS clients that read nothing while about 300 KB each are
+    broadcast (below MAX_WRITE_BUFFER, in many small writes, as a file
+    decode emits them) then get every byte in order, and then the lines of
+    one raw-input frame: the SBS line and the raw echo."""
+    net, (ro, ri, http, sbs), stats = services
+    raw_c = socket.create_connection(("127.0.0.1", ro), timeout=10)
+    sbs_c = socket.create_connection(("127.0.0.1", sbs), timeout=10)
+    try:
+        assert _wait(lambda: stats.sbs_connections == 1 and len(net._raw_clients) == 1)
+        raw_lines = [f"*8D{i:06X}58C382D690C8AC2863A7;\n" for i in range(9000)]
+        sbs_lines = [f"MSG,3,,,{i:06X},,,,,,,33000,,,,,,,0,0,0,0\n" for i in range(6000)]
+        for i, line in enumerate(raw_lines):
+            net.broadcast_raw(line)
+            if i < len(sbs_lines):
+                net.broadcast_sbs(sbs_lines[i])
+        with socket.create_connection(("127.0.0.1", ri), timeout=10) as inp:
+            inp.sendall(b"*5dabcdef8a6ab3;\n")
+            want_raw = "".join(raw_lines).encode() + b"*5DABCDEF8A6AB3;\n"
+            want_sbs = "".join(sbs_lines).encode() + b"MSG,8,,,ABCDEF,,,,,,,,,,,,,,,,,\n"
+            for sock, want in ((raw_c, want_raw), (sbs_c, want_sbs)):
+                got = b""
+                while len(got) < len(want):
+                    chunk = sock.recv(1 << 16)
+                    assert chunk, "the client was closed"
+                    got += chunk
+                assert got == want
+    finally:
+        raw_c.close()
+        sbs_c.close()
+
+
 def test_broadcast_and_http_under_client_churn(services):
     """Raw-out clients connect, read a little or nothing, and leave while
     the decode side broadcasts; HTTP keep-alive clients and half-sent

@@ -275,3 +275,151 @@ def test_raw_input_threads_and_run_device_share_the_hub_under_the_lock(capture):
     starts = [i for i, ln in enumerate(text) if ln.startswith("*")]
     assert len(starts) == used[0]
     assert all(text[i + 1].startswith("CRC: ") for i in starts)
+
+
+# ---- the host-resolve path: demod on the device, resolve on the host --------
+
+
+@pytest.fixture(scope="module")
+def traffic():
+    from dump1090_tpu_torch.utils.synth import traffic_capture
+
+    data, _ = traffic_capture(5, 160, seed=51, blank_every=13)
+    return data
+
+
+def _host_run(pkg_pipeline, pkg_config, dec_config, data, fix, aggressive, native, **kw):
+    p = pkg_pipeline(pkg_config(decoder=dec_config(fix_errors=fix, aggressive=aggressive), **kw),
+                     clock=lambda: NOW, native=native,
+                     **({"device": "cpu"} if pkg_pipeline is DemodPipeline else {}))
+    out = []
+    p.run(io.BytesIO(data), out.append)
+    return p, [dataclasses.asdict(m) for m in out]
+
+
+@pytest.mark.parametrize("mode,native", [("fix", True), ("nofix", True), ("aggressive", True),
+                                         ("fix", False)])
+def test_host_path_matches_jax_and_run_device(traffic, mode, native):
+    """DemodPipeline.run (2-buffer batches, candidate overflow forced from
+    max_candidates=16) against the JAX package's run and against the
+    port's own run_device on the same input: every message field, the 8
+    counters and the ICAO cache."""
+    fix, aggressive = MODES[mode]
+    kw = dict(batch_buffers=2, max_candidates=16)
+    p, got = _host_run(DemodPipeline, PipelineConfig, DecoderConfig, traffic, fix, aggressive,
+                       native, **kw)
+    pj, want = _host_run(JaxPipeline, JaxPipelineConfig, JaxDecoderConfig, traffic, fix,
+                         aggressive, native, **kw)
+    assert (p._native is not None) == native
+    assert got == want and _counters(p.stats) == _counters(pj.stats)
+    np.testing.assert_array_equal(p.cache.addr, pj.cache.addr)
+    np.testing.assert_array_equal(p.cache.ts, pj.cache.ts)
+    assert p._mc == pj._mc > 16, "the overflow retry should have grown the shape"
+    dev = DemodPipeline(PipelineConfig(decoder=DecoderConfig(fix_errors=fix, aggressive=aggressive),
+                                       batch_buffers=2, dispatch_groups=2),
+                        clock=lambda: NOW, device="cpu")
+    on_dev = []
+    dev.run_device(io.BytesIO(traffic), on_dev.append)
+    assert got == [dataclasses.asdict(m) for m in on_dev]
+    assert _counters(p.stats) == _counters(dev.stats)
+    assert sum(m["crcok"] for m in got) > 500 and len({m["msgtype"] for m in got}) >= 9
+
+
+def test_messages_stream_records_and_run_source_agree(traffic):
+    """messages() yields run's messages; stream_records (one native call a
+    batch, the per-row fallback on overflow) gives one record array per
+    buffer whose crcok frames are run's; run_source over framed buffers is
+    run one buffer at a time."""
+    from dump1090_tpu_torch.io.sources import iq_buffers
+    from dump1090_tpu_torch.native import records_to_raw_lines
+
+    def fresh(**kw):
+        return DemodPipeline(PipelineConfig(**kw), clock=lambda: NOW, device="cpu")
+
+    want = []
+    fresh(batch_buffers=3).run(io.BytesIO(traffic), want.append)
+    want = [dataclasses.asdict(m) for m in want]
+    assert [dataclasses.asdict(m) for m in fresh(batch_buffers=3).messages(io.BytesIO(traffic))] \
+        == want
+    raw_want = b"".join(b"*" + m["msg"][: m["msgbits"] // 8].hex().encode() + b";\n"
+                        for m in want if m["crcok"])
+    for kw in (dict(batch_buffers=3), dict(batch_buffers=2, max_candidates=16)):
+        p = fresh(**kw)
+        recs = list(p.stream_records(io.BytesIO(traffic)))
+        assert len(recs) == 5 and b"".join(map(records_to_raw_lines, recs)) == raw_want
+    src = fresh()
+    got = []
+    src.run_source(list(iq_buffers(io.BytesIO(traffic))), got.append)
+    assert [dataclasses.asdict(m) for m in got] == want and src.samples_in == 5 * 131072
+    with pytest.raises(RuntimeError, match="native"):
+        next(DemodPipeline(PipelineConfig(), device="cpu", native=False).stream_records(
+            io.BytesIO(traffic)))
+
+
+def test_host_path_enqueues_the_next_demod_before_waiting(traffic, monkeypatch):
+    """Buffer (or batch) N+1's demodulation and fetch are enqueued before
+    the host waits on N's fetch, on both forms of the host path."""
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    log = []
+    real_batch, real_block, real_get = pl.demod_batch, pl.demod_iq_block, pl._Fetch.get
+
+    def batch(*a, **k):
+        log.append("D")
+        return real_batch(*a, **k)
+
+    def block(*a, **k):
+        log.append("D")
+        return real_block(*a, **k)
+
+    def get(self):
+        log.append("F")
+        return real_get(self)
+
+    monkeypatch.setattr(pl, "demod_batch", batch)
+    monkeypatch.setattr(pl, "demod_iq_block", block)
+    monkeypatch.setattr(pl._Fetch, "get", get)
+    for nb in (2, 1):
+        log.clear()
+        DemodPipeline(PipelineConfig(batch_buffers=nb), clock=lambda: NOW,
+                      device="cpu").run(io.BytesIO(traffic), lambda mm: None)
+        n = -(-5 // nb)
+        assert log == ["D", "D"] + ["F", "D"] * (n - 2) + ["F", "F"], nb
+
+
+def test_host_path_resolves_under_the_callers_lock(traffic):
+    import threading
+
+    lock = threading.RLock()
+    for native in (True, False):
+        p = DemodPipeline(PipelineConfig(batch_buffers=2), clock=lambda: NOW, device="cpu",
+                          lock=lock, native=native)
+        held = []
+        p.run(io.BytesIO(traffic), lambda mm: held.append(lock._is_owned()))
+        assert len(held) > 500 and all(held) and not lock._is_owned()
+
+
+def test_demod_retry_grows_x4_sticks_and_stops_at_the_ceiling(capture, monkeypatch):
+    """A buffer whose exact count overflows is demodulated again alone at
+    4x until it fits, the shape sticks, and past the every-other-position
+    ceiling the overflow raises."""
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    shapes = []
+    real = pl.demod_iq_block
+
+    def block(*a, **k):
+        shapes.append(k["max_candidates"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(pl, "demod_iq_block", block)
+    p = DemodPipeline(PipelineConfig(max_candidates=16), clock=lambda: NOW, device="cpu",
+                      native=False)
+    p.run(io.BytesIO(capture), lambda mm: None)
+    # buffer 2 was enqueued at 16 before buffer 1's retries (64, 256) grew
+    # the shape; its own retry starts from the 16 it was demodulated with
+    assert shapes == [16, 16, 64, 256, 256, 64, 256, 256, 256] and p._mc == 256
+    monkeypatch.setattr(pl, "SCAN_POSITIONS", 100)
+    with pytest.raises(OverflowError):
+        DemodPipeline(PipelineConfig(max_candidates=4), device="cpu",
+                      native=False).run(io.BytesIO(capture), lambda mm: None)
