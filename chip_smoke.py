@@ -32,7 +32,18 @@ drives two paths over a synthetic dense capture, checking what comes out:
     --debug cdj over 16 buffers on the card against the CPU (stdout and
     frames.js), and decode_captures(device_resolve=False) on 16 captures
     against the device strategy.  K1 is also held against its plain
-    version at this path's shapes: (1, 256), (16, 256) and (1, 1024).
+    version at this path's shapes: (1, 256), (16, 256) and (1, 1024);
+  * the packed preamble fronts (`front_variants`: the five formulations'
+    (n, pos) on one dense group bit-equal to the mask form's, each timed,
+    and the 3-group file decode under --tpu-front packed byte-equal),
+    --tpu-preload auto, staged and off over the 3 groups (`preload`:
+    byte-equal, wall time and time to the first line), --tpu-profile over
+    one group (`profile`: the trace names K1 and K2), and live input from
+    a stub librtlsdr (`live`: tests/stub_rtlsdr.c built with gcc; 64
+    transfers through run_source_device at a 200 ms pace against
+    run_source and run_device, the same at the radio's 65.536 ms pace with
+    drops and the time per buffer, and the live CLI in this process and as
+    a subprocess over one transfer).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -395,7 +406,8 @@ def captures_vs_cpu_phase(blocks: list, planted: list, dev: torch.device) -> Non
     with frozen_clock():
         for d in (dev, "cpu"):
             t1 = time.perf_counter()
-            runs[str(d)] = (decode_captures(caps, device=d), time.perf_counter() - t1)
+            runs[str(d)] = (decode_captures(caps, device=d, device_resolve=True),
+                            time.perf_counter() - t1)
     card, cpu = runs[str(dev)], runs["cpu"]
     if card[0] != cpu[0]:
         raise AssertionError("decode_captures on the card differs from the CPU run")
@@ -466,7 +478,7 @@ def captures_e2e_phase(blocks: list, planted: list, dev: torch.device, n: int = 
         for k in sampled:
             if solo[k] != results[k]:
                 raise AssertionError(f"capture {k}: decode_captures differs from decode_capture")
-            if decode_capture(caps[k], device="cpu") != solo[k]:
+            if decode_capture(caps[k], device="cpu", device_resolve=True) != solo[k]:
                 raise AssertionError(f"capture {k}: decode_capture on the card differs from the CPU")
 
     stages = collections.defaultdict(float)
@@ -550,20 +562,42 @@ def sustained(xg: torch.Tensor, shapes: dict, n_groups: int) -> float:
     return n_groups * xg.shape[0] * xg.shape[1] * BLOCK_SAMPLES / dt / 1e6
 
 
-def run_cli(argv: list, out: Path) -> float:
+class _FirstWrite(io.RawIOBase):
+    """A binary file that notes when its first byte was written."""
+
+    def __init__(self, fh):
+        self.fh, self.first = fh, None
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, b) -> int:
+        if self.first is None and len(b):
+            self.first = time.perf_counter()
+        return self.fh.write(b)
+
+
+def run_cli(argv: list, out: Path, timing: dict | None = None) -> float:
     """cli.main(argv) in this process, under the frozen clock, with stdout
     written to `out`, so the kernels' launch counts see its run.  Returns
-    its wall time in seconds."""
+    its wall time in seconds; `timing`, when a dict, also gets the seconds
+    to the first byte of stdout ("first_s")."""
     from dump1090_tpu_torch import cli
 
-    with frozen_clock(), open(out, "w") as fh, contextlib.redirect_stdout(fh):
-        t0 = time.perf_counter()
-        rc = cli.main(argv)
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+    with frozen_clock(), open(out, "wb") as raw:
+        sink = _FirstWrite(raw)
+        text = io.TextIOWrapper(io.BufferedWriter(sink), encoding="utf-8", write_through=True)
+        with contextlib.redirect_stdout(text):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        text.flush()
     if rc != 0:
         raise AssertionError(f"cli.main({argv}) returned {rc}")
+    if timing is not None:
+        timing["first_s"] = None if sink.first is None else sink.first - t0
     return seconds
 
 
@@ -682,7 +716,8 @@ def verbose_vs_cpu_phase(first64: Path, tmp: Path) -> tuple:
             _cuda.reset_launches()
         for name, flags in modes.items():
             path = tmp / f"{name}_{d}.txt"
-            secs[f"{name}_{d}_s"] = run_cli(["--ifile", str(first64), "--device", d, *flags], path)
+            secs[f"{name}_{d}_s"] = run_cli(["--ifile", str(first64), "--device", d,
+                                             "--tpu-device-resolve", "on", *flags], path)
             outs[(d, name)] = path.read_bytes()
         if d == "cuda":
             launches = dict(_cuda.launches)
@@ -1160,6 +1195,281 @@ def verbose_host_phase(first: Path, tmp: Path) -> None:
           "on_s": secs["on"], "off_s": secs["off"], "stdout_bytes": len(outs["on"])})
 
 
+def front_variants_phase(xg: torch.Tensor, path: Path, raw_want: bytes, tmp: Path) -> dict:
+    """The five preamble-scan formulations on one dense 512-buffer group
+    through _group_front at max_candidates 256: (n, pos) bit-equal to the
+    mask form's, each timed by CUDA events (median of 5 rounds that take the
+    variants in turn; magnitudes included); then the file decode of the 3
+    groups through cli.main --raw --tpu-front packed (counted), byte-equal
+    to the mask decode's."""
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.demod import FRONTS
+    from dump1090_tpu_torch.ops.resolve import _group_front
+
+    kw = dict(scan_len=131070, max_candidates=256)
+    _, n_ref, pos_ref = _group_front(xg, front="mask", **kw)
+    for front in FRONTS:
+        _, n, pos = _group_front(xg, front=front, **kw)
+        if not (torch.equal(n, n_ref) and torch.equal(pos, pos_ref)):
+            raise AssertionError(f"front {front}: (n, pos) differ from the mask form's")
+    # 5 rounds, each timing every variant in turn, so drift hits all alike
+    times = collections.defaultdict(list)
+    for _ in range(5):
+        for front in FRONTS:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _group_front(xg, front=front, **kw)
+            e1.record()
+            e1.synchronize()
+            times[front].append(e0.elapsed_time(e1))
+    ms = {front: sorted(t)[2] for front, t in times.items()}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    cli_s = run_cli(["--ifile", str(path), "--raw", "--tpu-front", "packed"], tmp / "packed.txt")
+    launches = dict(_cuda.launches)
+    if (tmp / "packed.txt").read_bytes() != raw_want:
+        raise AssertionError("--tpu-front packed differs from the mask decode's --raw")
+    emit({"phase": "front_variants", "buffers": int(n_ref.numel()), "max_candidates": 256,
+          "preambles": int(n_ref.sum().item()), "equal_mask": True,
+          "group_front_ms_median_of_5": ms, "cli_packed_raw_equal": True, "cli_packed_s": cli_s,
+          "launches": launches})
+    return launches
+
+
+def preload_phase(path: Path, raw_want: bytes, tmp: Path) -> dict:
+    """cli.main --raw over the 3 groups under --tpu-preload auto, staged and
+    off: byte-equal, with each run's wall time and its time to the first
+    byte of stdout.  Returns the launches of the staged run."""
+    from dump1090_tpu_torch.ops import _cuda
+
+    res, launches = {}, {}
+    for mode in ("auto", "staged", "off"):
+        out, timing = tmp / f"preload_{mode}.txt", {}
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        wall = run_cli(["--ifile", str(path), "--raw", "--tpu-preload", mode], out, timing)
+        launches[mode] = dict(_cuda.launches)
+        if out.read_bytes() != raw_want:
+            raise AssertionError(f"--tpu-preload {mode} differs from the file decode's --raw")
+        res[mode] = {"wall_s": wall, "first_line_s": timing["first_s"]}
+        out.unlink()
+    emit({"phase": "preload", "groups": 3, "equal": True, **res, "launches": launches})
+    return launches["staged"]
+
+
+def _build_stub() -> Path:
+    """tests/stub_rtlsdr.c built with gcc into the package's build
+    directory: a librtlsdr that replays $RTLSDR_STUB_DATA."""
+    from dump1090_tpu_torch.ops import _cuda
+
+    out = _cuda.BUILD_DIR / "stub" / "librtlsdr_stub.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", str(REPO / "tests" / "stub_rtlsdr.c"),
+                    "-o", str(out)], check=True, capture_output=True, timeout=120)
+    return out
+
+
+@contextlib.contextmanager
+def stub_radio(lib: Path, data: Path, delay_us: int | None):
+    """The stub radio's variables set for this process and its children,
+    and put back after."""
+    import os
+
+    keys = ("DUMP1090_TPU_LIBRTLSDR", "RTLSDR_STUB_DATA", "RTLSDR_STUB_DELAY_US")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ["DUMP1090_TPU_LIBRTLSDR"] = str(lib)
+    os.environ["RTLSDR_STUB_DATA"] = str(data)
+    os.environ.pop("RTLSDR_STUB_DELAY_US", None)
+    if delay_us is not None:
+        os.environ["RTLSDR_STUB_DELAY_US"] = str(delay_us)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def live_phase(data: bytes, dev: torch.device, tmp: Path, n_live: int = 64) -> tuple:
+    """The live path with the stub radio (tests/stub_rtlsdr.c), at the
+    reference's geometry: one 256 KiB transfer a dispatch, max_candidates
+    256, over 64 transfers of the dense air, after a warm-up.
+
+    Correctness: run_source_device at a 200 ms pace (counted) must take all
+    64 buffers, and its messages and counters must equal run_source's (host
+    resolve, the C++ runtime) over the buffers it was handed and
+    run_device's over the same bytes as a file.  Measurement: the same 64
+    transfers at the radio's pace (65.536 ms apart): buffers sent, handed
+    over and decoded, and per buffer the time from its hand-over to its
+    last emit (which includes waiting for the next buffer: the dispatch
+    queue fetches a group once the next is dispatched) and from the next
+    buffer's hand-over to that last emit.  Then the live CLI: cli.main
+    --device-index 0 --gain 40 --raw over one transfer (counted) and the
+    same as a `python -m dump1090_tpu_torch` subprocess, both equal to the
+    file decode of the same bytes.  Returns the launches of the correctness
+    run and of the in-process CLI run."""
+    from dump1090_tpu_torch.io.rtlsdr import RtlSdrSource
+    from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda
+
+    lib = _build_stub()
+    air = tmp / "live.bin"
+    air.write_bytes(data[: n_live * 262144])
+
+    def pipeline(**kw):
+        return DemodPipeline(PipelineConfig(), clock=lambda: NOW, device=dev, **kw)
+
+    def handed_over(gen, log):
+        for buf in gen:
+            log.append((time.perf_counter(), buf))
+            yield buf
+
+    # warm-up: kernels loaded, the live shapes allocated on the card
+    with open(air, "rb") as f:
+        pipeline().run_device(io.BytesIO(f.read(4 * 262144)), lambda mm: None)
+    torch.cuda.synchronize()
+
+    with stub_radio(lib, air, 200_000):
+        handed, msgs = [], []
+        p = pipeline()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        p.run_source_device(handed_over(RtlSdrSource(err=io.StringIO()).buffers(), handed),
+                            msgs.append)
+        torch.cuda.synchronize()
+        paced_s = time.perf_counter() - t0
+        launches = dict(_cuda.launches)
+    if len(handed) != n_live:
+        raise AssertionError(f"the paced live run took {len(handed)} of {n_live} buffers")
+    host, host_msgs = pipeline(native=True), []
+    host.run_source([b for _, b in handed], host_msgs.append)
+    ref, ref_msgs = pipeline(), []
+    with open(air, "rb") as f:
+        ref.run_device(f, ref_msgs.append)
+    got = as_tuples(msgs)
+    if got != as_tuples(host_msgs) or vars(p.stats) != vars(host.stats):
+        raise AssertionError("run_source_device differs from run_source on the live buffers")
+    if got != as_tuples(ref_msgs) or vars(p.stats) != vars(ref.stats):
+        raise AssertionError("run_source_device differs from run_device on the same file")
+
+    # the radio's own pace: what a dongle would deliver
+    batch_t, last_emit, rt_msgs, marks = [], {}, [], []
+    real_decode, real_dispatch = pl.messages_from_device_arrays, pl.demod_resolve_group
+
+    def decode(*a):
+        batch_t.append(time.perf_counter())
+        return real_decode(*a)
+
+    def dispatch(*a, **k):
+        marks.append([])
+        t0 = time.perf_counter()
+        out = real_dispatch(*a, marks=marks[-1], **k)
+        marks[-1].append(("issue_s", time.perf_counter() - t0))
+        return out
+
+    def on_message(mm):
+        last_emit[len(batch_t) - 1] = time.perf_counter()
+        rt_msgs.append(mm)
+
+    pl.messages_from_device_arrays, pl.demod_resolve_group = decode, dispatch
+    try:
+        with stub_radio(lib, air, 65_536):
+            rt_handed, rt = [], pipeline()
+            t0 = time.perf_counter()
+            rt.run_source_device(handed_over(RtlSdrSource(err=io.StringIO()).buffers(),
+                                             rt_handed), on_message)
+            rt_s = time.perf_counter() - t0
+    finally:
+        pl.messages_from_device_arrays, pl.demod_resolve_group = real_decode, real_dispatch
+    # per dispatch: device time between the first and the last stage event,
+    # and the host's time to issue it (a replayed buffer counts twice)
+    device_ms = [m[0][1].elapsed_time(m[-2][1]) for m in marks]
+    issue_ms = [m[-1][1] * 1e3 for m in marks]
+    done = [last_emit.get(k, batch_t[k]) for k in range(len(batch_t))]
+    latency = [(done[k] - rt_handed[k][0]) * 1e3 for k in range(len(done))]
+    after_next = [(done[k] - rt_handed[k + 1][0]) * 1e3 for k in range(len(done) - 1)]
+
+    def spread(v):
+        return {"median": float(np.median(v)), "max": max(v), "min": min(v)} if v else None
+
+    # the live CLI over one transfer, which nothing can overwrite
+    one = tmp / "live_one.bin"
+    one.write_bytes(data[:262144])
+    with open(one, "rb") as f:
+        want = b"".join(pipeline().stream_raw_device(f))
+    with stub_radio(lib, one, None):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        cli_s = run_cli(["--device-index", "0", "--gain", "40", "--raw"], tmp / "live_cli.txt")
+        cli_launches = dict(_cuda.launches)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--device-index", "0",
+                            "--gain", "40", "--raw"], cwd=REPO, capture_output=True, timeout=300)
+        sub_s = time.perf_counter() - t0
+    if (tmp / "live_cli.txt").read_bytes() != want or not want:
+        raise AssertionError("the live CLI's --raw differs from the file decode of its bytes")
+    if r.returncode != 0 or r.stdout != want:
+        raise AssertionError(f"the live CLI subprocess differs (rc {r.returncode}): "
+                             f"{r.stderr.decode()[-2000:]}")
+    if b"Setting gain to: 40.00" not in r.stderr:
+        raise AssertionError("the live CLI subprocess did not set the gain")
+    emit({"phase": "live", "buffer_ms": 65.536, "max_candidates": 256,
+          "paced_200ms": {"buffers_sent": n_live, "buffers_decoded": len(handed),
+                          "messages": len(msgs), "crcok": sum(m.crcok for m in msgs),
+                          "equal_run_source": True, "equal_run_device_file": True,
+                          "stats_equal": True, "wall_s": paced_s},
+          "real_pace": {"buffers_sent": n_live, "buffers_handed_over": len(rt_handed),
+                        "buffers_decoded": len(batch_t),
+                        "buffers_dropped": n_live - len(rt_handed),
+                        "messages": len(rt_msgs), "wall_s": rt_s,
+                        "handover_to_last_emit_ms": spread(latency),
+                        "next_handover_to_last_emit_ms": spread(after_next),
+                        "dispatches": len(marks), "device_ms_per_dispatch": spread(device_ms),
+                        "issue_ms_per_dispatch": spread(issue_ms)},
+          "cli_equal_file": True, "cli_subprocess_equal": True, "cli_lines": len(want.split()),
+          "cli_s": cli_s, "cli_subprocess_s": sub_s, "launches": launches,
+          "cli_launches": cli_launches})
+    return launches, cli_launches
+
+
+def profile_phase(first: Path, raw_want: bytes, tmp: Path) -> dict:
+    """cli.main --raw --tpu-profile <dir> over one group (counted): the same
+    bytes as without it, and a Chrome trace in <dir> that names the K1 and
+    K2 kernels."""
+    from dump1090_tpu_torch.ops import _cuda
+
+    prof = tmp / "profile"
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    wall = run_cli(["--ifile", str(first), "--raw", "--tpu-profile", str(prof)],
+                   tmp / "profile.txt")
+    launches = dict(_cuda.launches)
+    if (tmp / "profile.txt").read_bytes() != raw_want:
+        raise AssertionError("--tpu-profile changed the --raw output")
+    traces = sorted(prof.glob("dump1090_tpu_torch.*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--tpu-profile wrote {len(traces)} traces")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    cats = collections.Counter(str(e.get("cat")) for e in events)
+    # full names: nvcc's may start with "(anonymous namespace)::"
+    kernels = collections.Counter(str(e.get("name")) for e in events
+                                  if e.get("cat") == "kernel")
+    named = {k: sum(c for name, c in kernels.items() if k in name)
+             for k in ("gather_windows_kernel", "resolve_words_kernel")}
+    if not all(named.values()):
+        top = [(k[:80], c) for k, c in kernels.most_common(12)]
+        raise AssertionError(f"the trace does not name K1 and K2: {named}; categories "
+                             f"{dict(cats)}; kernels {top}")
+    emit({"phase": "profile", "buffers": 512, "raw_equal": True,
+          "trace_bytes": traces[0].stat().st_size, "events": len(events),
+          "kernel_events": sum(kernels.values()), "kernel_names": len(kernels),
+          "named": named, "wall_s": wall, "launches": launches})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1354,6 +1664,20 @@ def main() -> int:
         debug_cpu_launches = debug_vs_cpu_phase(first16, tmp)
     captures_host_launches = captures_host_phase(blocks, planted, dev)
 
+    # ---- the packed fronts, staged preload, --tpu-profile and live input ------
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        path = tmp / "capture.bin"
+        path.write_bytes(data[: args.groups * group_blocks * 262144])
+        front_launches = front_variants_phase(xg, path, out, tmp)
+        staged_launches = preload_phase(path, out, tmp)
+        path.unlink()
+        first = tmp / "first_group.bin"
+        first.write_bytes(data[: group_blocks * 262144])
+        live_launches, live_cli_launches = live_phase(data, dev, tmp)
+        profile_launches = profile_phase(first, runs["cuda"][0], tmp)
+        first.unlink()
+
     paths = {
         "file_decode": (launches, ("gather_windows", "resolve_words")),
         "decode_captures": (captures_launches, ("gather_windows", "resolve_words_streams")),
@@ -1367,6 +1691,11 @@ def main() -> int:
         "debug_golden": (debug_golden_launches, ("gather_windows",)),
         "debug_vs_cpu": (debug_cpu_launches, ("gather_windows",)),
         "decode_captures_host": (captures_host_launches, ("gather_windows",)),
+        "front_packed": (front_launches, ("gather_windows", "resolve_words")),
+        "preload_staged": (staged_launches, ("gather_windows", "resolve_words")),
+        "live": (live_launches, ("gather_windows", "resolve_words")),
+        "live_cli": (live_cli_launches, ("gather_windows", "resolve_words")),
+        "profile": (profile_launches, ("gather_windows", "resolve_words")),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():

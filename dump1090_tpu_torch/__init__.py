@@ -1,5 +1,6 @@
-"""dump1090-tpu on PyTorch and CUDA: the Mode S / ADS-B file decode with the
-demodulator and the sequential candidate resolver on an NVIDIA card.
+"""dump1090-tpu on PyTorch and CUDA: the Mode S / ADS-B decode of files and of
+live RTL-SDR input, with the demodulator and the sequential candidate
+resolver on an NVIDIA card.
 
 This package is a port of `dump1090_tpu` (JAX on a TPU), which stays beside
 it as the reference.  It keeps that package's module paths and function
@@ -10,7 +11,8 @@ counterpart.  It imports torch and numpy only: never jax, and nothing from
 Programmatic use: `decode_capture` (one capture) and `decode_captures`
 (many independent captures sharing each dispatch) return ModesMessage
 lists; `models.pipeline.DemodPipeline` is the streaming decoder behind the
-CLI.
+CLI (`run_source_device` and `run_source` take the buffers of a live
+`io.rtlsdr.RtlSdrSource`).
 
 Entry points run on CUDA unless the caller asks for the CPU (`device="cpu"`,
 `--device cpu`); with no card and no such request they raise.  The kernels
@@ -23,6 +25,8 @@ the device and replays the sequential scan on the host, in a C++ runtime
 """
 
 import torch
+
+__version__ = "0.1.0"
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -46,4 +50,4 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 from .api import decode_capture, decode_captures  # noqa: E402  (needs resolve_device)
 
-__all__ = ["decode_capture", "decode_captures", "resolve_device"]
+__all__ = ["decode_capture", "decode_captures", "resolve_device", "__version__"]

@@ -3,13 +3,15 @@ dump1090_tpu/api.py).
 
   * `decode_capture` — one capture (path/bytes/array/stream) -> list of
     ModesMessage, through DemodPipeline.run_device (device resolve, the
-    default) or DemodPipeline.run (host resolve).
+    default on CUDA) or DemodPipeline.run (host resolve, the default on the
+    CPU).
   * `decode_captures` — MANY independent captures decoded together.  Device
-    strategy (the default): every still-active capture adds its next
+    strategy (the default on CUDA): every still-active capture adds its next
     buffers to one shared demod + resolve dispatch
     (ops.resolve.demod_resolve_streams), and the multi-stream resolver
     kernel walks each capture against its own ICAO cache, one block per
-    capture.  Host strategy (device_resolve=False): each dispatch
+    capture.  Host strategy (device_resolve=False, the default on the
+    CPU): each dispatch
     demodulates one buffer of every still-active capture on the device
     (ops.demod.demod_batch), and the host resolves each capture against
     its own cache, with the C++ runtime or its Python twin.  Per-capture
@@ -46,7 +48,7 @@ from .models.pipeline import DemodPipeline, PipelineConfig, _Fetch, _upload
 from .models.resolver import BlockCandidates, resolve_block
 from .native import NativeResolver
 from .ops.demod import Candidates, demod_batch, demod_iq_block
-from .ops.resolve import demod_resolve_streams, streams_dispatch_shape
+from .ops.resolve import demod_resolve_streams, streams_dispatch_shape, use_device_resolve
 
 # buffers each still-active capture adds to one decode_captures round
 STREAM_BUFFERS = 4
@@ -73,19 +75,22 @@ def decode_capture(
 ) -> list[ModesMessage]:
     """Decode one IQ capture (path, bytes, uint8 array, or binary stream).
 
-    device_resolve: None or True run the sequential resolver on the device
-    too (DemodPipeline.run_device); False resolves on the host
-    (DemodPipeline.run, the C++ runtime when it builds).  The messages are
-    the same."""
+    device_resolve: True runs the sequential resolver on the device too
+    (DemodPipeline.run_device); False resolves on the host
+    (DemodPipeline.run, the C++ runtime when it builds); None (auto) takes
+    the device on CUDA and the host on the CPU
+    (ops.resolve.use_device_resolve).  The messages are the same."""
+    if device_resolve is None:
+        device_resolve = use_device_resolve(device)
     cfg = PipelineConfig(decoder=config or DecoderConfig(), batch_buffers=batch_buffers)
     p = DemodPipeline(cfg, device=device)
     out: list[ModesMessage] = []
     stream = _as_stream(capture)
     try:
-        if device_resolve is False:
-            p.run(stream, out.append)
-        else:
+        if device_resolve:
             p.run_device(stream, out.append)
+        else:
+            p.run(stream, out.append)
     finally:
         if stream is not capture:
             stream.close()
@@ -119,10 +124,13 @@ def decode_captures(
     """Decode many independent captures, all of them sharing each device
     dispatch.  Per-capture results are bit-identical to `decode_capture`.
 
-    device_resolve: None or True run the device-resolve strategy (see
-    _decode_captures_device); False the host-resolve strategy (see
-    _decode_captures_host)."""
-    if device_resolve is False:
+    device_resolve: True runs the device-resolve strategy (see
+    _decode_captures_device), False the host-resolve strategy (see
+    _decode_captures_host), None (auto) the device strategy on CUDA and the
+    host strategy on the CPU (ops.resolve.use_device_resolve)."""
+    if device_resolve is None:
+        device_resolve = use_device_resolve(device)
+    if not device_resolve:
         return _decode_captures_host(
             captures, config=config, crcok_only=crcok_only, device=device
         )

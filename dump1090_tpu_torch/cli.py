@@ -1,23 +1,26 @@
-"""Command line interface of the port (a port of dump1090_tpu/cli.py): the
-file decode with the demodulator on the device and the resolver on the
-device or the host, and every output of the JAX package's CLI behind it.
+"""Command line interface of the port (a port of dump1090_tpu/cli.py): file
+and live RTL-SDR decode with the demodulator on the device and the resolver
+on the device or the host, and every output of the JAX package's CLI behind
+it.
 
 Behavioral contract: main/showHelp/argv loop, dump1090.c:2787-3012.  Flags
 keep the reference's and the JAX package's spellings and semantics.
-Routing, as in the JAX package: pure `--raw` or `--stats` with no other
-consumer takes the bulk device path (DemodPipeline.stream_raw_device); with
-`--tpu-device-resolve off`, pure `--raw` takes the bulk host path
+Routing, as in the JAX package: on a file, pure `--raw` or `--stats` with no
+other consumer takes the bulk device path (DemodPipeline.stream_raw_device);
+with the resolver on the host, pure `--raw` takes the bulk host path
 (stream_records, the C++ runtime); every other run (the verbose display,
 `--onlyaddr`, `--no-crc-check`, `--interactive`, `--net`) takes
-DemodPipeline.run_device and the message hub, or with `--tpu-device-resolve
-off` or `--debug` DemodPipeline.run (host resolve) and the hub.
-`--tpu-device-resolve auto` means on: the port's resolver kernels run on
-the card.  `--net-only` does no device work.
+DemodPipeline.run_device and the message hub, or with the resolver on the
+host or `--debug` DemodPipeline.run and the hub.  Live input (no `--ifile`:
+io/rtlsdr.py) takes run_source_device, or run_source with the resolver on
+the host or `--debug`, one buffer a dispatch.  `--tpu-device-resolve auto`
+puts the resolver on the device for cuda and on the host for cpu
+(ops.resolve.use_device_resolve).  `--net-only` does no device work.
 
-`--device cuda|cpu` takes the place of `--tpu-backend`; the default is
-cuda, and without a card the CLI stops with an error rather than decoding
-on the CPU.  Live RTL-SDR input (no `--ifile`) and the other options of the
-JAX package that are not ported stop with a "not yet ported" error: the
+`--device cuda|cpu` picks the device; `--tpu-backend cpu|cuda|gpu` is an
+alias.  The default is cuda, and without a card the CLI stops with an error
+rather than decoding on the CPU.  `--tpu-shard-time`, the one option of the
+JAX package that is not ported, stops with a "not yet ported" error: the
 port never gives a different output without saying so.
 """
 
@@ -29,6 +32,11 @@ import time
 from .constants import INTERACTIVE_ROWS, INTERACTIVE_TTL
 
 HELP = """\
+--device-index <index>   Select RTL device (default: 0).
+--gain <db>              Set gain (default: max gain. Use -100 for auto-gain).
+--enable-agc             Enable the Automatic Gain Control (default: off).
+--freq <hz>              Set frequency (default: 1090 Mhz).
+--ppm <error>            Set receiver error in parts per million (default: 0).
 --ifile <filename>       Read data from file (use '-' for stdin).
 --loop                   With --ifile, read the same file in a loop.
 --interactive            Interactive mode refreshing data on screen.
@@ -54,16 +62,29 @@ HELP = """\
 --tpu-max-candidates <n> Max preamble candidates per block (default: 256).
 --tpu-batch <n>          IQ buffers per batch (default: 64 for files, 16
                          with the resolver on the host, 1 for stdin).
+--tpu-profile <dir>      Write a torch.profiler trace of the decode (host
+                         and CUDA activity) to <dir> as a Chrome trace.
 --tpu-dispatch-ahead <n> Dispatch groups held in flight before the oldest
                          is fetched (0 = auto: 3 for seekable files, 1
-                         for stdin, looped or throttled input; identical
-                         output).
+                         for stdin, live, looped or throttled input and
+                         under --tpu-preload staged; identical output).
+--tpu-preload <m>        auto|staged|off: upload a regular file to the
+                         device before the first dispatch (auto), one
+                         group and then the rest on a reader thread while
+                         it decodes (staged), or always stream through
+                         the reader thread (off).
+--tpu-front <name>       Preamble-scan formulation: mask or
+                         packed[-plain][-mxu] (default: mask, or
+                         DUMP1090_TPU_FRONT).  All bit-identical; see
+                         ops/demod.py:front_candidates.
 --tpu-state-load <file>  Restore tracker/ICAO-cache/stats snapshot at start.
 --tpu-state-save <file>  Save a state snapshot on exit (checkpoint/resume).
 --tpu-device-resolve <on|off|auto>
-                         Run the sequential resolver on the device (on,
-                         auto) or on the host (off: the C++ runtime).
+                         Run the sequential resolver on the device (on) or
+                         on the host (off: the C++ runtime); auto = on for
+                         cuda, off for cpu.
 --device <name>          cuda (default) or cpu.
+--tpu-backend <name>     Alias of --device: cpu, or cuda (gpu).
 
 Debug mode flags: d = Log frames decoded with errors
                   D = Log frames decoded with zero errors
@@ -73,17 +94,13 @@ Debug mode flags: d = Log frames decoded with errors
                   n = Log network debugging info
                   j = Log frames to frames.js, loadable by debug.html.
 
-Not yet ported to this package (use python -m dump1090_tpu): live RTL-SDR
-input (no --ifile) and its options, and --tpu-shard-time, --tpu-front,
---tpu-preload, --tpu-profile and --tpu-backend.
+Not yet ported to this package (use python -m dump1090_tpu): --tpu-shard-time.
 """
 
-# the JAX package's CLI flags that are not ported here
-_UNPORTED_WITH_VALUE = {
-    "--device-index", "--gain", "--freq", "--ppm", "--tpu-profile",
-    "--tpu-backend", "--tpu-shard-time", "--tpu-front", "--tpu-preload",
-}
-_UNPORTED = {"--enable-agc"}
+# the JAX package's CLI flags that are not ported here (each takes a value)
+_UNPORTED_WITH_VALUE = {"--tpu-shard-time"}
+# --tpu-backend names and the --device each stands for
+_BACKENDS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 
 
 def get_term_rows() -> int:
@@ -100,6 +117,11 @@ def get_term_rows() -> int:
 
 class Options:
     def __init__(self):
+        self.gain = 999999
+        self.dev_index = 0
+        self.enable_agc = False
+        self.freq = 1090000000
+        self.ppm = 0
         self.filename: str | None = None
         self.loop = False
         self.fix_errors = True
@@ -122,6 +144,9 @@ class Options:
         self.max_candidates = 256
         self.batch: int | None = None   # buffers per batch
         self.dispatch_ahead = 0
+        self.preload = "auto"
+        self.front: str | None = None
+        self.profile_dir: str | None = None
         self.state_load: str | None = None
         self.state_save: str | None = None
         self.debug = ""
@@ -135,6 +160,14 @@ def _c_atoi(s: str) -> int:
 
     m = re.match(r"[ \t\n\r\f\v]*[+-]?[0-9]+", s)
     return int(m.group()) if m else 0
+
+
+def _c_atof(s: str) -> float:
+    """C atof: longest leading float prefix, 0.0 on junk (--gain)."""
+    import re
+
+    m = re.match(r"[ \t\n\r\f\v]*[+-]?([0-9]+(\.[0-9]*)?|\.[0-9]+)([eE][+-]?[0-9]+)?", s)
+    return float(m.group()) if m else 0.0
 
 
 def _not_ported(what: str) -> SystemExit:
@@ -157,7 +190,17 @@ def parse_args(argv: list[str]) -> Options:
             j += 1
             return argv[j]
 
-        if arg == "--ifile" and more:
+        if arg == "--device-index" and more:
+            o.dev_index = _c_atoi(nxt())
+        elif arg == "--gain" and more:
+            o.gain = int(_c_atof(nxt()) * 10)
+        elif arg == "--enable-agc":
+            o.enable_agc = True
+        elif arg == "--freq" and more:
+            o.freq = _c_atoi(nxt())
+        elif arg == "--ppm" and more:
+            o.ppm = _c_atoi(nxt())
+        elif arg == "--ifile" and more:
             o.filename = nxt()
         elif arg == "--loop":
             o.loop = True
@@ -209,6 +252,37 @@ def parse_args(argv: list[str]) -> Options:
             o.batch = int(nxt())
         elif arg == "--tpu-dispatch-ahead" and more:
             o.dispatch_ahead = _c_atoi(nxt())
+        elif arg == "--tpu-profile" and more:
+            o.profile_dir = nxt()
+        elif arg == "--tpu-front" and more:
+            # validated here, not at the first dispatch; passed down as
+            # PipelineConfig.front (the environment is left as it is)
+            from .ops.demod import check_front
+
+            o.front = nxt()
+            try:
+                check_front(o.front)
+            except ValueError:
+                sys.stderr.write(
+                    f"--tpu-front: expected mask|packed[-plain][-mxu], got '{o.front}'.\n"
+                )
+                raise SystemExit(1) from None
+        elif arg == "--tpu-preload" and more:
+            o.preload = nxt()
+            if o.preload not in ("auto", "staged", "off"):
+                sys.stderr.write(
+                    f"--tpu-preload: expected auto|staged|off, got '{o.preload}'.\n"
+                )
+                raise SystemExit(1)
+        elif arg == "--tpu-backend" and more:
+            name = nxt()
+            if name not in _BACKENDS:
+                sys.stderr.write(
+                    f"--tpu-backend: this package runs on cuda or cpu, not '{name}'; "
+                    f"use --device cuda|cpu.\n"
+                )
+                raise SystemExit(1)
+            o.device = _BACKENDS[name]
         elif arg == "--tpu-state-load" and more:
             o.state_load = nxt()
         elif arg == "--tpu-state-save" and more:
@@ -228,7 +302,7 @@ def parse_args(argv: list[str]) -> Options:
         elif arg == "--help":
             sys.stdout.write(HELP)
             raise SystemExit(0)
-        elif arg in _UNPORTED or (arg in _UNPORTED_WITH_VALUE and more):
+        elif arg in _UNPORTED_WITH_VALUE and more:
             raise _not_ported(f"option '{arg}'")
         else:
             sys.stderr.write(
@@ -237,8 +311,6 @@ def parse_args(argv: list[str]) -> Options:
             sys.stdout.write(HELP)
             raise SystemExit(1)
         j += 1
-    if o.filename is None and not o.net_only and o.snip is None:
-        raise _not_ported("live RTL-SDR input (no --ifile)")
     return o
 
 
@@ -315,12 +387,18 @@ def main(argv: list[str] | None = None) -> int:
     # emit callback takes it again around hub.use_message.
     state_lock = threading.RLock()
 
-    # --tpu-device-resolve auto means on: the resolver kernels run on the
-    # card
-    use_dev = o.device_resolve != "off"
+    # --tpu-device-resolve auto: the resolver kernels on the card for
+    # cuda, the host resolver for cpu
+    if o.device_resolve == "auto":
+        from .ops.resolve import use_device_resolve
 
-    # the pipeline owns the cache and the stats in file mode; in net-only
-    # mode there is no pipeline and no device work
+        use_dev = use_device_resolve(o.device)
+    else:
+        use_dev = o.device_resolve == "on"
+    live = o.filename is None
+
+    # the pipeline owns the cache and the stats; in net-only mode there is
+    # no pipeline and no device work
     pipeline = None
     if o.net_only:
         stats, cache = DecoderStats(), IcaoCache()
@@ -328,27 +406,32 @@ def main(argv: list[str] | None = None) -> int:
         from .models.pipeline import DemodPipeline, PipelineConfig
         from .utils.debug import DebugFlags
 
-        # batched dispatch for files; one buffer per dispatch for stdin.  The
-        # host-resolve path (--tpu-device-resolve off, --debug) takes 16
-        # buffers a batch and no dispatch groups, as in the JAX package
-        dev_batching = use_dev and not o.debug
-        batch = o.batch if o.batch is not None else (
-            1 if o.filename == "-" else 64 if dev_batching else 16)
+        if live:
+            # one buffer per dispatch: 65 ms of air
+            cfg = PipelineConfig(decoder=dcfg, max_candidates=o.max_candidates, batch_buffers=1,
+                                 dispatch_ahead=o.dispatch_ahead, front=o.front)
+        else:
+            # batched dispatch for files; one buffer per dispatch for stdin.
+            # The host-resolve path (resolver off, --debug) takes 16 buffers
+            # a batch and no dispatch groups, as in the JAX package
+            dev_batching = use_dev and not o.debug
+            batch = o.batch if o.batch is not None else (
+                1 if o.filename == "-" else 64 if dev_batching else 16)
+            cfg = PipelineConfig(
+                decoder=dcfg, max_candidates=o.max_candidates, loop=o.loop,
+                batch_buffers=1 if o.interactive else batch,
+                # the reference slows --ifile playback in interactive mode
+                # (usleep(5000) per buffer, dump1090.c:471-477)
+                throttle_s=0.005 if o.interactive else 0.0,
+                # 8 batches per dispatch group for files on the device path,
+                # 1 for stdin and interactive feeds
+                dispatch_groups=(8 if dev_batching and not o.interactive
+                                 and o.filename != "-" else 1),
+                preload=o.preload, dispatch_ahead=o.dispatch_ahead, front=o.front,
+            )
         try:
             pipeline = DemodPipeline(
-                PipelineConfig(
-                    decoder=dcfg, max_candidates=o.max_candidates, loop=o.loop,
-                    batch_buffers=1 if o.interactive else batch,
-                    # the reference slows --ifile playback in interactive
-                    # mode (usleep(5000) per buffer, dump1090.c:471-477)
-                    throttle_s=0.005 if o.interactive else 0.0,
-                    # 8 batches per dispatch group for files on the device
-                    # path, 1 for stdin and interactive feeds
-                    dispatch_groups=(8 if dev_batching and not o.interactive
-                                     and o.filename != "-" else 1),
-                    dispatch_ahead=o.dispatch_ahead,
-                ),
-                device=o.device, lock=state_lock,
+                cfg, device=o.device, lock=state_lock,
                 debug_flags=DebugFlags.parse(o.debug) if o.debug else None,
             )
         except RuntimeError as e:
@@ -400,16 +483,35 @@ def main(argv: list[str] | None = None) -> int:
                     _interactive_refresh(tracker, o, state_lock, tui_guard)
                     last_refresh = time.time()
 
+        sdr = None
+        if live:
+            # live RTL-SDR capture (modesInitRTLSDR, dump1090.c:385-434):
+            # librtlsdr is bound at run time; without it, a clean error
+            from .io.rtlsdr import RtlSdrError, RtlSdrSource, RtlSdrUnavailable
+
+            try:
+                sdr = RtlSdrSource(dev_index=o.dev_index, gain=o.gain,
+                                   enable_agc=o.enable_agc, freq=o.freq, ppm=o.ppm)
+            except RtlSdrUnavailable as e:
+                sys.stderr.write(
+                    f"No RTL-SDR support on this host ({e}): provide "
+                    "--ifile (use '-' for stdin) or --net-only.\n"
+                )
+                return 1
+            except RtlSdrError:
+                return 1  # enumeration/open error already printed, like exit(1)
+
         from .io.sources import open_iq_source
 
         try:
-            stream = open_iq_source(o.filename)
+            stream = open_iq_source(o.filename) if o.filename else None
         except OSError as e:
             # reference: perror("Opening data file") + exit(1), dump1090.c:2952-2953
             print(f"Opening data file: {e.strerror}", file=sys.stderr)
             return 1
         last_refresh = [0.0]
         t_start = time.time()
+        profiler = _start_profiler(o.device) if o.profile_dir else None
 
         def on_message(mm) -> None:
             # the tui_guard marks the tracker-mutating region so a SIGWINCH
@@ -423,13 +525,21 @@ def main(argv: list[str] | None = None) -> int:
                     last_refresh[0] = now
 
         # pure --raw / --stats with no other consumer: the bulk paths, which
-        # format hex lines and build no per-message objects
-        solo = (not o.interactive and not o.net and not o.onlyaddr and o.check_crc
-                and not o.debug)
+        # format hex lines and build no per-message objects (file decode
+        # only; live input takes the one-buffer streaming paths)
+        solo = (sdr is None and not o.interactive and not o.net and not o.onlyaddr
+                and o.check_crc and not o.debug)
         fast_dev = solo and (o.raw or o.stats) and use_dev
         fast_raw = solo and o.raw and not o.stats and not use_dev and pipeline._native is not None
         try:
-            if fast_dev:
+            if sdr is not None:
+                if use_dev and not o.debug:
+                    # demod and the sequential resolve on the device; buffer
+                    # N+1 uploads on the ingest thread while N resolves
+                    pipeline.run_source_device(sdr.buffers(), on_message)
+                else:
+                    pipeline.run_source(sdr.buffers(), on_message)
+            elif fast_dev:
                 w = sys.stdout.buffer
                 for line in pipeline.stream_raw_device(stream):
                     # --stats mode emits nothing but the counters
@@ -457,6 +567,8 @@ def main(argv: list[str] | None = None) -> int:
                 # the final state stays visible
                 _interactive_refresh(tracker, o, state_lock, tui_guard)
         finally:
+            if profiler is not None:
+                _stop_profiler(profiler, o.profile_dir)
             if o.stats:
                 # throughput meter on stderr keeps stdout byte-exact
                 dt = max(time.time() - t_start, 1e-9)
@@ -466,7 +578,9 @@ def main(argv: list[str] | None = None) -> int:
                     f"{ns/dt/1e6:.1f} Msamples/s ({ns/dt/2e6:.0f}x realtime) "
                     f"on {pipeline.device}\n"
                 )
-            if stream is not sys.stdin.buffer:
+            if sdr is not None:
+                sdr.close()
+            if stream is not None and stream is not sys.stdin.buffer:
                 stream.close()
     except KeyboardInterrupt:
         return 0
@@ -478,9 +592,36 @@ def main(argv: list[str] | None = None) -> int:
 
             state_mod.save(o.state_save, tracker, cache, stats)
 
-    if o.stats:
+    if o.stats and o.filename:
         print_stats(stats)
     return 0
+
+
+def _start_profiler(device: str):
+    """A started torch.profiler.profile recording host activity and, on
+    cuda, the card's (kernels, copies): --tpu-profile's stand-in for the
+    JAX package's jax.profiler.trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda" and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, out_dir: str) -> None:
+    """Stop the profile and write it to `out_dir` as a Chrome trace
+    (`dump1090_tpu_torch.<pid>.pt.trace.json`, readable by chrome://tracing,
+    Perfetto and TensorBoard's profiler plugin)."""
+    import os
+
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    name = f"dump1090_tpu_torch.{os.getpid()}.pt.trace.json"
+    prof.export_chrome_trace(os.path.join(out_dir, name))
 
 
 def network_services(o: Options, hub, cache, dcfg, state_lock):

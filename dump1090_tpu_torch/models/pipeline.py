@@ -1,8 +1,9 @@
 """End-to-end decode: IQ bytes -> `*<hex>;` lines or ModesMessage objects
 (port of dump1090_tpu/models/pipeline.py), by two strategies.
 
-Device resolve (stream_raw_device, the --raw/--stats path, and run_device):
-the demodulator AND the sequential resolver run on the card.  Groups of
+Device resolve (stream_raw_device, the --raw/--stats path; run_device; and
+run_source_device, live buffers): the demodulator AND the sequential
+resolver run on the card.  Groups of
 `dispatch_groups` x `batch_buffers` buffers are uploaded, and each group
 runs ops.resolve.demod_resolve_group with the ICAO cache chained on the
 device from one group to the next.  Up to `dispatch_ahead` groups are in
@@ -45,9 +46,11 @@ from ..io.raw_lines import raw_lines_from_fields
 from ..io.sources import iq_buffers
 from ..ops.demod import (
     Candidates,
+    check_front,
     demod_batch,
     demod_block,
     demod_iq_block,
+    front_variant,
     preamble_reject_stages,
 )
 from ..ops.magnitude import magnitude_from_iq
@@ -89,14 +92,21 @@ class PipelineConfig:
     dispatch_groups: int = 1
     # Ingest strategy for regular files: "auto" uploads every group of a
     # file up to PRELOAD_CAP_BYTES before the first dispatch (never for a
-    # looped or throttled source); "off" always streams through a reader
-    # thread (one group of lookahead).
+    # looped or throttled source); "staged" uploads one group, dispatches
+    # it, and uploads the rest on a reader thread meanwhile (for the first
+    # message: the decode starts before the file is resident); "off" always
+    # streams through a reader thread (one group of lookahead).
     preload: str = "auto"
     # Dispatch groups in flight before the oldest is fetched.  0 = auto: 3
-    # for seekable sources, 1 for streams and for looped or throttled
-    # sources, where two more groups of latency would break the live
-    # cadence.  Output is identical at every depth.
+    # for seekable sources under preload "auto" or "off"; 1 under "staged",
+    # whose point is the first message, and for streams, live buffers and
+    # looped or throttled sources, where two more groups of latency would
+    # break the live cadence.  Output is identical at every depth.
     dispatch_ahead: int = 0
+    # Preamble-scan formulation of every front call: "mask" or
+    # "packed[-plain][-mxu]" (ops.demod.front_candidates), all
+    # bit-identical; None takes DUMP1090_TPU_FRONT, else "mask".
+    front: str | None = None
 
 
 class _Fetch:
@@ -148,6 +158,11 @@ class DemodPipeline:
                  device: str | torch.device | None = None, lock=None, *,
                  native: bool | None = None, debug_flags=None, debug_out=None):
         self.cfg = cfg or PipelineConfig()
+        if self.cfg.preload not in ("auto", "staged", "off"):
+            raise ValueError(f"preload: expected auto|staged|off, got {self.cfg.preload!r}")
+        # an unknown front name fails here, not at the first dispatch
+        self._front = self.cfg.front or front_variant()
+        check_front(self._front)
         self.device = resolve_device(device)
         # held around each batch's emit calls (and, on the host path, around
         # each resolve step, which mutates the shared cache and stats): a
@@ -208,34 +223,58 @@ class DemodPipeline:
         both the demodulation and the sequential resolve on the device; the
         host only re-interleaves the packed short/long frame rows and
         formats hex."""
-        for count, count_long, shorts, longs in self._device_batches(stream, packed=True):
-            msg, bits = interleave_packed(count, count_long, shorts, longs)
-            yield raw_lines_from_fields(msg, bits, np.ones(msg.shape[0], dtype=bool))
+        batches = self._device_batches(stream, packed=True)
+        try:
+            for count, count_long, shorts, longs in batches:
+                msg, bits = interleave_packed(count, count_long, shorts, longs)
+                yield raw_lines_from_fields(msg, bits, np.ones(msg.shape[0], dtype=bool))
+        finally:
+            batches.close()
 
-    def run_device(self, stream: BinaryIO, emit: Callable[[ModesMessage], None]) -> None:
+    def run_source_device(self, buffers, emit: Callable[[ModesMessage], None]) -> None:
+        """Device-resolve twin of run_source: decode an iterable of
+        pre-framed uint8[BUF_BYTES] buffers (a live io.rtlsdr.RtlSdrSource)
+        with the demodulation and the sequential resolve on the device.  With
+        the live defaults (batch_buffers=1, dispatch_groups=1) buffer N+1 is
+        uploaded on the ingest thread while buffer N resolves on the device,
+        like the reference's rtlsdrCallback -> detectModeS hand-off
+        (dump1090.c:442-458, 2968-2990)."""
+        self.run_device(None, emit, buffers=buffers)
+
+    def run_device(self, stream: BinaryIO | None, emit: Callable[[ModesMessage], None],
+                   buffers=None) -> None:
         """Full-fidelity device path: every message the reference hands to
         useModesMessage (good AND bad CRC), as ModesMessage objects in scan
-        order, with demod + sequential resolve on the device.  The field
-        decode on the host is stateless (models/decoder.py
-        message_from_device): every cache/CRC decision arrives in the
-        per-message meta word.  The emit calls of each batch run under the
-        pipeline's lock."""
-        for meta_h, msg_h in self._device_batches(stream, packed=False):
-            mms = messages_from_device_arrays(msg_h, meta_h)
-            if not mms:
-                continue
-            with self._lock:
-                for mm in mms:
-                    emit(mm)
+        order, with demod + sequential resolve on the device, over `stream`
+        or, when given, the pre-framed `buffers`.  The field decode on the
+        host is stateless (models/decoder.py message_from_device): every
+        cache/CRC decision arrives in the per-message meta word.  The emit
+        calls of each batch run under the pipeline's lock.  However the
+        decode ends (the end of the input, an exception, KeyboardInterrupt),
+        the device's ICAO cache is synced back to the host cache before
+        this returns."""
+        batches = self._device_batches(stream, packed=False, buffers=buffers)
+        try:
+            for meta_h, msg_h in batches:
+                mms = messages_from_device_arrays(msg_h, meta_h)
+                if not mms:
+                    continue
+                with self._lock:
+                    for mm in mms:
+                        emit(mm)
+        finally:
+            batches.close()
 
-    def _device_batches(self, stream: BinaryIO, *, packed: bool):
+    def _device_batches(self, stream: BinaryIO | None, *, packed: bool, buffers=None):
         """Dispatch GROUPS of batches chained through the device-resident
         ICAO cache, fetch each group's emissions in one transfer, detect
         overflow by exact counts and replay from the pre-group state with
         sticky shape growth.  Yields per batch (count, count_long, shorts,
         longs) when packed (see ops.resolve.interleave_packed), else
-        (meta[count], msg[count, 14]).  The device cache is synced back to
-        the host cache at the end of the stream only, so raw network input
+        (meta[count], msg[count, 14]).  The buffers come from `stream`, or
+        from the iterable `buffers` when given (a live source: no preload,
+        auto depth 1).  The device cache is synced back to the host cache
+        when the generator ends or is closed only, so raw network input
         decoded on the host meanwhile sees the host cache as it was before
         the decode; stats accumulate into self.stats.
 
@@ -263,7 +302,7 @@ class DemodPipeline:
                 scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
                 max_candidates=self._mc, max_out=self._mo,
                 max_out_short=self._mos, max_out_long=self._mol,
-                packed=packed,
+                packed=packed, front=self._front,
             )
             # start the fetch now: it runs as soon as the group finishes,
             # while the next groups compute; the cache stays on the device
@@ -366,13 +405,19 @@ class DemodPipeline:
         # dispatch-ahead depth (PipelineConfig.dispatch_ahead; 0 = auto)
         depth = self.cfg.dispatch_ahead
         if depth <= 0:
-            try:
-                seekable = stream.seekable()
-            except (OSError, AttributeError, ValueError):
-                seekable = False
-            depth = 3 if seekable and not self.cfg.loop and self.cfg.throttle_s == 0 else 1
+            seekable = False
+            if buffers is None and stream is not None:
+                try:
+                    seekable = stream.seekable()
+                except (OSError, AttributeError, ValueError):
+                    seekable = False
+            depth = 3 if (seekable and not self.cfg.loop and self.cfg.throttle_s == 0
+                          and self.cfg.preload != "staged") else 1
 
-        it = iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
+        if buffers is not None:
+            it = iter(buffers)
+        else:
+            it = iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
         # entries: (xg, state_before, fetch, ca_after, ct_after, shapes)
         pending: collections.deque = collections.deque()
         groups = self._ingest_groups(stream, it, ng, nb)
@@ -420,11 +465,14 @@ class DemodPipeline:
         trailing batches that hold no buffer are not built: they would be
         all no-signal (127) and carry zero candidates.
 
-        Two strategies: preload (regular files up to PRELOAD_CAP_BYTES, not
-        looped or throttled) frames and uploads every group before the
-        first dispatch; streaming (stdin, large files, --loop, throttled
-        playback, or preload "off") frames and uploads group g+1 on a reader
-        thread while the main thread dispatches and fetches g."""
+        Three strategies: preload (regular files up to PRELOAD_CAP_BYTES,
+        not looped or throttled) frames and uploads every group before the
+        first dispatch; staged preload (the same files under preload
+        "staged") uploads the first group, yields it, and uploads the rest
+        on a reader thread into an unbounded queue; streaming (stdin, live
+        buffers with stream None, large files, --loop, throttled playback,
+        or preload "off") frames and uploads group g+1 on a reader thread
+        while the main thread dispatches and fetches g."""
         dev = self.device
 
         def make_group(bufs):
@@ -437,21 +485,31 @@ class DemodPipeline:
             return list(itertools.islice(it, ng * nb))
 
         preload = False
-        if self.cfg.preload != "off" and not self.cfg.loop and self.cfg.throttle_s == 0:
+        if (stream is not None and self.cfg.preload != "off" and not self.cfg.loop
+                and self.cfg.throttle_s == 0):
             try:
                 cap = int(os.environ.get("DUMP1090_TPU_PRELOAD_BYTES", self.PRELOAD_CAP_BYTES))
                 preload = os.fstat(stream.fileno()).st_size <= cap and stream.seekable()
             except (OSError, AttributeError, ValueError):
                 preload = False
 
-        if preload:
-            staged = []
+        staged = preload and self.cfg.preload == "staged"
+        if preload and not staged:
+            groups = []
             while bufs := next_bufs():
-                staged.append(make_group(bufs))
-            yield from staged
+                groups.append(make_group(bufs))
+            yield from groups
             return
 
-        q: queue.Queue = queue.Queue(maxsize=1)
+        first = None
+        if staged:
+            bufs = next_bufs()
+            if not bufs:
+                return
+            first = make_group(bufs)
+        # staged: an unbounded queue, so the reader uploads the whole tail
+        # while the first groups decode; streaming: one group of lookahead
+        q: queue.Queue = queue.Queue(maxsize=0 if staged else 1)
         stop = threading.Event()
 
         def put(item) -> None:
@@ -477,6 +535,8 @@ class DemodPipeline:
         t = threading.Thread(target=reader, name="iq-upload", daemon=True)
         t.start()
         try:
+            if first is not None:
+                yield first
             while True:
                 item = q.get()
                 if item is None:
@@ -499,10 +559,10 @@ class DemodPipeline:
         scan_len = BUF_SAMPLES - FULL_LEN_SAMPLES
         x = _upload(buf, self.device)
         if not self._debugging:
-            cand = demod_iq_block(x, scan_len=scan_len, max_candidates=mc)
+            cand = demod_iq_block(x, scan_len=scan_len, max_candidates=mc, front=self._front)
             return buf, _Fetch(list(cand))
         mag = magnitude_from_iq(x)
-        cand = demod_block(mag, scan_len=scan_len, max_candidates=mc)
+        cand = demod_block(mag, scan_len=scan_len, max_candidates=mc, front=self._front)
         rej = preamble_reject_stages(mag, scan_len=scan_len)
         return buf, _Fetch([*cand, mag, rej])
 
@@ -565,8 +625,8 @@ class DemodPipeline:
             self.samples_in += n_real * BLOCK_SAMPLES
             x = np.full((nb, bufs[0].shape[0]), 127, dtype=np.uint8)
             x[:n_real] = np.stack(bufs)
-            cand = demod_batch(_upload(x, self.device),
-                               scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, max_candidates=self._mc)
+            cand = demod_batch(_upload(x, self.device), scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
+                               max_candidates=self._mc, front=self._front)
             yield x, _Fetch(list(cand)), n_real
 
     def _stream_batched(self, stream, emit, drain: list | None = None):

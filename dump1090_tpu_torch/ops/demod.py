@@ -133,12 +133,211 @@ def compact_positions(mask: torch.Tensor, max_candidates: int, scan_len: int) ->
     return first_k_positions(mask, max_candidates, scan_len).to(torch.int32)
 
 
-def front_candidates(m: torch.Tensor, scan_len: int, max_candidates: int):
-    """Batched front half in its `mask` form: magnitudes int32 (B, S) ->
-    (n int32[B] exact preamble count, pos int32[B, max_candidates])."""
-    mask = preamble_mask(m, scan_len)
-    n = mask.sum(dim=1, dtype=torch.int32)
-    return n, compact_positions(mask, max_candidates, scan_len)
+_FILL = -(2**30)  # the score of an empty slot: below every real score
+# popcount of every byte value (torch has no population count)
+_POPCOUNT = [bin(v).count("1") for v in range(256)]
+
+
+def compact_positions_from_bytes(byte: torch.Tensor, max_candidates: int,
+                                 scan_len: int) -> torch.Tensor:
+    """compact_positions entered at the packed group-byte level: int32
+    (B, n_grp) bytes (bit 7 = first position of the group) -> int32
+    (B, max_candidates), the first max_candidates set positions of each row
+    ascending, padded with `scan_len`.
+
+    Levels, as in the JAX package, engaged by the static sizes: with
+    max_candidates <= n_sup the first max_candidates non-empty supergroups
+    of 8 groups are taken by a top_k over supergroup scores, their group
+    bytes fetched, and the surviving groups taken by a second top_k; with
+    max_candidates <= n_grp the first non-empty groups directly; otherwise
+    a flat top_k over positions.  Every selected container holds a hit, so
+    the first-K property holds at each level.  Scores are int32 with the
+    JAX encodings (-(gidx*256 + 255 - byte), fill -(2**30)); only the top_k
+    VALUES are used, so the order in which ties come back does not
+    matter.  The JAX package fetches the supergroups' bytes with a one-hot
+    product on the MXU, exact for one-hot rows and bytes <= 255; here that
+    fetch is the gather it computes."""
+    b, n_grp = byte.shape
+    n_sup = -(-n_grp // 8)
+    dev = byte.device
+    t8 = torch.arange(8, dtype=torch.int32, device=dev)
+
+    def top(score: torch.Tensor, k: int) -> torch.Tensor:
+        return torch.topk(score, k, dim=-1).values
+
+    if max_candidates <= n_sup:
+        # level 0: first MC non-empty supergroups (64 positions each)
+        bpad = torch.zeros((b, n_sup * 8), dtype=torch.int32, device=dev)
+        bpad[:, :n_grp] = byte
+        b8 = bpad.reshape(b, n_sup, 8)
+        si = torch.arange(n_sup, dtype=torch.int32, device=dev)
+        sscore = torch.where((b8 > 0).any(dim=2), -si, _FILL)
+        ssel = -top(sscore, max_candidates)       # ascending, padded with 2^30
+        valid_s = ssel < n_sup
+        ssel_c = torch.where(valid_s, ssel, 0)
+        gbytes = torch.gather(b8, 1, ssel_c.to(torch.int64)[:, :, None].expand(-1, -1, 8))
+        gbytes = gbytes * valid_s[:, :, None]
+        gidx = ssel_c[:, :, None] * 8 + t8
+        gscore = torch.where((gbytes > 0) & valid_s[:, :, None],
+                             -(gidx * 256 + 255 - gbytes), _FILL).reshape(b, -1)
+        vals = top(gscore, max_candidates)
+    elif max_candidates <= n_grp:
+        # first MC non-empty groups; the byte folds into disjoint score
+        # ranges so it travels with the group index
+        gi = torch.arange(n_grp, dtype=torch.int32, device=dev)
+        score = torch.where(byte > 0, -(gi * 256 + 255 - byte), _FILL)
+        vals = top(score, max_candidates)
+    else:
+        # degenerate (tiny rows): flat top_k over positions
+        flat_bits = ((byte[:, :, None] >> (7 - t8)) & 1).reshape(b, -1)
+        pi = torch.arange(n_grp * 8, dtype=torch.int32, device=dev)
+        k = min(max_candidates, n_grp * 8)
+        fscore = torch.where(flat_bits > 0, -pi, _FILL)
+        fpos = torch.clamp_max(-top(fscore, k), scan_len)
+        pad = torch.full((b, max_candidates - k), scan_len, dtype=torch.int32, device=dev)
+        return torch.cat([fpos, pad], dim=1)
+
+    v = -vals
+    grp = v // 256
+    gbyte = torch.where(v < 2**30 - 1, 255 - v % 256, 0)
+    # final level: expand each group's bits to positions, compact the rest
+    hit = ((gbyte[:, :, None] >> (7 - t8)) & 1) > 0
+    pos = grp[:, :, None] * 8 + t8
+    pscore = torch.where(hit & (pos < scan_len), -pos, _FILL).reshape(b, -1)
+    return torch.clamp_max(-top(pscore, max_candidates), scan_len)
+
+
+def preamble_bytes(m: torch.Tensor, scan_len: int, *, algebra: bool = True,
+                   mxu: bool = False) -> torch.Tensor:
+    """Byte-packed preamble predicate of each row of int32 magnitudes
+    (B, S): int32 (B, ceil(scan_len/8)), bit 7 of byte g = position 8g.
+
+    The 15-tap predicate (dump1090.c:1602-1650) is evaluated once over the
+    zero-padded group domain and materialized as packed group bytes: `n`
+    is their popcount and compaction enters at
+    compact_positions_from_bytes.  algebra=True shares pairwise
+    subexpressions across taps (one gt/lt compare, a 2- and 4-wide running
+    max for the s3..s6 < s0 and quiet-tail tests, one pair sum for
+    `high`); algebra=False is the direct 15-slice form.  mxu=True packs
+    bits into bytes by a product instead of shift and or (pack_bits).  All
+    four are bit-identical to the mask form.
+
+    Requires S >= ceil(scan_len/8)*8 + 17, which every caller geometry
+    satisfies: a buffer carries FULL_LEN_SAMPLES = 240 real samples past its
+    last scan position (dump1090.c:1593)."""
+    b, s_len = m.shape
+    n_grp = -(-scan_len // 8)
+    n_pad = n_grp * 8
+    if s_len < n_pad + 17:
+        raise ValueError(
+            f"preamble_bytes: row of {s_len} samples cannot cover "
+            f"{scan_len} scan positions (needs >= {n_pad + 17})"
+        )
+    if not algebra:
+        def s(k: int) -> torch.Tensor:
+            return m[:, k : k + n_pad]
+
+        c = (
+            (s(0) > s(1)) & (s(1) < s(2)) & (s(2) > s(3)) & (s(3) < s(0))
+            & (s(4) < s(0)) & (s(5) < s(0)) & (s(6) < s(0))
+            & (s(7) > s(8)) & (s(8) < s(9)) & (s(9) > s(6))
+        )
+        high = (s(0) + s(2) + s(7) + s(9)) // 6
+        c &= (s(4) < high) & (s(5) < high)
+        c &= (s(11) < high) & (s(12) < high) & (s(13) < high) & (s(14) < high)
+    else:
+        # Shared subexpressions, each built once and tapped shifted.  The
+        # largest tap offset is 11 (mm2), and mm2 reaches 2 further into mm,
+        # so they are built over n_pad + 16 positions: the roll's
+        # wraparound then lies beyond every tap.
+        nb = n_pad + 16
+        a0, a1 = m[:, :nb], m[:, 1 : nb + 1]
+        gt = a0 > a1                       # m[j] >  m[j+1]
+        lt = a0 < a1                       # m[j] <  m[j+1]
+        mm = torch.maximum(a0, a1)         # max(m[j], m[j+1])
+        mm2 = torch.maximum(mm, torch.roll(mm, -2, dims=1))  # max(m[j..j+3])
+        q = a0 + torch.roll(a0, -2, dims=1)                  # m[j] + m[j+2]
+
+        def tap(arr: torch.Tensor, k: int) -> torch.Tensor:
+            return arr[:, k : k + n_pad]
+
+        high = (tap(q, 0) + tap(q, 7)) // 6
+        c = (
+            tap(gt, 0) & tap(lt, 1) & tap(gt, 2)
+            & (tap(mm2, 3) < tap(a0, 0))           # s3..s6 all < s0
+            & tap(gt, 7) & tap(lt, 8)
+            & (tap(a0, 9) > tap(a0, 6))            # s9 > s6
+            & (tap(mm, 4) < high)                  # s4, s5 < high
+            & (tap(mm2, 11) < high)                # s11..s14 < high
+        )
+    c &= torch.arange(n_pad, device=m.device) < scan_len
+    return pack_bits(c.reshape(b, n_grp, 8), mxu=mxu)
+
+
+def pack_bits(bits: torch.Tensor, *, mxu: bool = False) -> torch.Tensor:
+    """bool (..., 8) -> int32 (...) bytes, the first bit the most
+    significant: by shift and sum (the bits are disjoint, so the sum is the
+    or), or with mxu=True by a product with the weights 128..1 in float32,
+    where the operands are 0/1 and powers of two and every sum up to 255 is
+    exact."""
+    shifts = 7 - torch.arange(8, dtype=torch.int32, device=bits.device)
+    if mxu:
+        w = (1 << shifts).to(torch.float32)
+        return torch.matmul(bits.to(torch.float32), w).to(torch.int32)
+    return (bits.to(torch.int32) << shifts).sum(dim=-1, dtype=torch.int32)
+
+
+def front_packed(m: torch.Tensor, scan_len: int, max_candidates: int, *,
+                 algebra: bool = True, mxu: bool = False):
+    """(n int32 (B,), pos int32 (B, max_candidates)) of int32 magnitudes
+    (B, S) through the byte-packed predicate."""
+    byte = preamble_bytes(m, scan_len, algebra=algebra, mxu=mxu)
+    lut = torch.tensor(_POPCOUNT, dtype=torch.int32, device=m.device)
+    n = lut[byte.to(torch.int64)].sum(dim=1, dtype=torch.int32)
+    return n, compact_positions_from_bytes(byte, max_candidates, scan_len)
+
+
+FRONTS = ("mask", "packed", "packed-mxu", "packed-plain", "packed-plain-mxu")
+
+
+def front_variant() -> str:
+    """The front formulation taken when none is passed: DUMP1090_TPU_FRONT
+    when set, else 'mask' on every device.
+
+    'mask' is preamble_mask + compact_positions; 'packed[-plain][-mxu]' the
+    single-evaluation preamble_bytes (-plain without the shared
+    subexpressions, -mxu packing bytes by a product).  All bit-identical.
+    The JAX package picks 'packed' off a TPU from CPU and TPU timings; the
+    port keeps 'mask', with which every card number of the port was taken,
+    until a card measurement picks another."""
+    import os
+
+    return os.environ.get("DUMP1090_TPU_FRONT") or "mask"
+
+
+def check_front(front: str) -> tuple[bool, bool] | None:
+    """None for 'mask', else (algebra, mxu) of a packed variant; ValueError
+    for any other name."""
+    if front == "mask":
+        return None
+    tokens = front.split("-")
+    if tokens[0] != "packed" or not set(tokens[1:]) <= {"plain", "mxu"}:
+        raise ValueError(f"unknown demod front variant: {front!r}")
+    return "plain" not in tokens, "mxu" in tokens
+
+
+def front_candidates(m: torch.Tensor, scan_len: int, max_candidates: int,
+                     front: str | None = None):
+    """Batched front half: int32 magnitudes (B, S) -> (n int32[B] exact
+    preamble count, pos int32[B, max_candidates]) in the formulation named
+    by `front` (None: front_variant())."""
+    packed = check_front(front_variant() if front is None else front)
+    if packed is None:
+        mask = preamble_mask(m, scan_len)
+        n = mask.sum(dim=1, dtype=torch.int32)
+        return n, compact_positions(mask, max_candidates, scan_len)
+    algebra, mxu = packed
+    return front_packed(m, scan_len, max_candidates, algebra=algebra, mxu=mxu)
 
 
 def _slice_window(ms: torch.Tensor):
@@ -310,31 +509,36 @@ def _candidate_passes(m: torch.Tensor, pos: torch.Tensor):
     return [o.reshape((b, mc) + tuple(o.shape[1:])) for o in outs]
 
 
-def demod_batch(iq_buffers: torch.Tensor, *, scan_len: int, max_candidates: int) -> Candidates:
+def demod_batch(iq_buffers: torch.Tensor, *, scan_len: int, max_candidates: int,
+                front: str | None = None) -> Candidates:
     """Batched demodulation of (B, nbytes) uint8 IQ buffers, or of the same
     wire bytes as (B, nbytes/2) uint16 I|Q<<8 pairs: magnitudes, the front
-    (exact count and first-K positions), the window gather (K1) and both
-    demod passes, with every field shaped (B, ...).  Nothing syncs the
-    host.  Port of dump1090_tpu/parallel/sharding.py::demod_batch (the
-    single-device form; the sharded forms are not ported)."""
+    (exact count and first-K positions, in the formulation `front` names;
+    see front_candidates), the window gather (K1) and both demod passes,
+    with every field shaped (B, ...).  Nothing syncs the host.  Port of
+    dump1090_tpu/parallel/sharding.py::demod_batch (the single-device form;
+    the sharded forms are not ported)."""
     if iq_buffers.dtype == torch.uint16:
         m = magnitude_from_pairs(iq_buffers)
     else:
         m = magnitude_from_iq(iq_buffers)
-    n, pos = front_candidates(m, scan_len, max_candidates)
+    n, pos = front_candidates(m, scan_len, max_candidates, front)
     return Candidates(n, pos, *_candidate_passes(m, pos))
 
 
-def demod_block(m: torch.Tensor, *, scan_len: int, max_candidates: int = 512) -> Candidates:
+def demod_block(m: torch.Tensor, *, scan_len: int, max_candidates: int = 512,
+                front: str | None = None) -> Candidates:
     """Demodulate one magnitude block: int32 (S,) -> Candidates of one
     buffer (n is a 0-d tensor).  scan_len: number of scan positions
     (reference: S - 240, dump1090.c:1593)."""
-    n, pos = front_candidates(m[None], scan_len, max_candidates)
+    n, pos = front_candidates(m[None], scan_len, max_candidates, front)
     return Candidates(n[0], pos[0], *(f[0] for f in _candidate_passes(m[None], pos)))
 
 
-def demod_iq_block(iq_bytes: torch.Tensor, *, scan_len: int, max_candidates: int = 512) -> Candidates:
+def demod_iq_block(iq_bytes: torch.Tensor, *, scan_len: int, max_candidates: int = 512,
+                   front: str | None = None) -> Candidates:
     """One buffer of uint8 IQ bytes -> Candidates of one buffer:
     demod_batch over a batch of one."""
-    cand = demod_batch(iq_bytes[None], scan_len=scan_len, max_candidates=max_candidates)
+    cand = demod_batch(iq_bytes[None], scan_len=scan_len, max_candidates=max_candidates,
+                       front=front)
     return Candidates(*(f[0] for f in cand))

@@ -153,6 +153,16 @@ def clamp_packed_out(mos: int, mol: int, short_need: int = 0,
     return mos, mol
 
 
+def use_device_resolve(device: str | torch.device | None = None) -> bool:
+    """The `auto` resolve policy (the CLI's --tpu-device-resolve auto and
+    the API's device_resolve=None): the sequential resolver runs on the
+    device for CUDA (the K2 and K3 kernels; `device` None means CUDA) and on
+    the host for the CPU (the C++ runtime or its Python twin), as the JAX
+    package keeps its device resolver for its accelerator.  Output is the
+    same either way."""
+    return torch.device("cuda" if device is None else device).type == "cuda"
+
+
 def normalize_max_candidates(mc: int) -> int:
     """Round mc up to a multiple of RESOLVE_CHUNK above RESOLVE_CHUNK — the
     JAX package's kernel geometry, kept so both packages grow through the
@@ -693,13 +703,15 @@ def _mark(marks: list | None, name: str) -> None:
         marks.append((name, ev))
 
 
-def _group_front(xg: torch.Tensor, *, scan_len: int, max_candidates: int):
+def _group_front(xg: torch.Tensor, *, scan_len: int, max_candidates: int,
+                 front: str | None = None):
     """Magnitudes + preamble predicate + position compaction for every
     buffer of the group: xg uint8 (G, NB, nbytes) -> (m int32 (G*NB, S),
-    n int32 (G*NB,), pos int32 (G*NB, MC))."""
+    n int32 (G*NB,), pos int32 (G*NB, MC)).  `front` picks the preamble-scan
+    formulation (ops.demod.front_candidates; every choice bit-identical)."""
     g_n, nb, nbytes = xg.shape
     m = magnitude_from_iq(xg.reshape(g_n * nb, nbytes))
-    n, pos = front_candidates(m, scan_len, max_candidates)
+    n, pos = front_candidates(m, scan_len, max_candidates, front)
     return m, n, pos
 
 
@@ -796,6 +808,7 @@ def demod_resolve_group(
     max_out_short: int = 0,
     max_out_long: int = 0,
     packed: bool = True,
+    front: str | None = None,
     marks: list | None = None,
 ):
     """Device pipeline over a dispatch GROUP: xg is (G, NB, nbytes) uint8 IQ
@@ -823,8 +836,10 @@ def demod_resolve_group(
     max_candidates, count-count_long > mos or count_long > mol, count >
     max_out), never silently truncated.
 
-    `marks`, when a list, collects (stage, CUDA event) pairs for a
-    per-stage timing split (CUDA only)."""
+    `front` picks the preamble-scan formulation (None: the
+    DUMP1090_TPU_FRONT default, ops.demod.front_variant).  `marks`, when a
+    list, collects (stage, CUDA event) pairs for a per-stage timing split
+    (CUDA only)."""
     _check_entry(xg, scan_len, "(G, NB, nbytes)")
     if packed and max_out_short + max_out_long > PACKED_RANK_LIMIT:
         raise ValueError(
@@ -840,7 +855,8 @@ def demod_resolve_group(
         post = functools.partial(_postprocess_unpacked, max_out=max_out)
     max_candidates = normalize_max_candidates(max_candidates)
     _mark(marks, "start")
-    m, n, pos = _group_front(xg, scan_len=scan_len, max_candidates=max_candidates)
+    m, n, pos = _group_front(xg, scan_len=scan_len, max_candidates=max_candidates,
+                             front=front)
     _mark(marks, "front")
     return _group_back(
         m, n, pos, cache_addr, cache_ts, now, bool(fix_errors), bool(aggressive),
@@ -859,6 +875,7 @@ def demod_resolve_streams(
     scan_len: int,
     max_candidates: int,
     max_out: int,
+    front: str | None = None,
     marks: list | None = None,
 ):
     """S INDEPENDENT capture streams share one demod + resolve dispatch
@@ -876,7 +893,8 @@ def demod_resolve_streams(
     s_n, nb, _ = xs.shape
     max_candidates = normalize_max_candidates(max_candidates)
     _mark(marks, "start")
-    m, n, pos = _group_front(xs, scan_len=scan_len, max_candidates=max_candidates)
+    m, n, pos = _group_front(xs, scan_len=scan_len, max_candidates=max_candidates,
+                             front=front)
     _mark(marks, "front")
     walk_in, (msg1f, msg2f, aux1, aux2, pos_f) = _group_precompute(
         m, n, pos, bool(fix_errors), bool(aggressive),

@@ -81,22 +81,23 @@ def test_run_device_matches_jax(captures, mode):
 
 def test_decode_capture_matches_jax(captures, frozen):
     cfg = DecoderConfig(fix_errors=True)
-    got = tapi.decode_capture(captures[1], config=cfg, device="cpu")
+    got = tapi.decode_capture(captures[1], config=cfg, device="cpu", device_resolve=True)
     want = japi.decode_capture(captures[1], config=JaxDecoderConfig(),
                                device_resolve=True)
     assert _dicts(got) == _dicts(want) and len(got) > 100
     ok = tapi.decode_capture(np.frombuffer(captures[1], np.uint8), crcok_only=True,
-                             device="cpu", batch_buffers=1)
+                             device="cpu", batch_buffers=1, device_resolve=True)
     assert _dicts(ok) == [d for d in _dicts(want) if d["crcok"]]
 
 
 def test_decode_captures_matches_jax_and_solo(captures, jax_batched, frozen):
-    got = tapi.decode_captures(captures, device="cpu")
+    got = tapi.decode_captures(captures, device="cpu", device_resolve=True)
     assert [len(s) for s in got] == [len(s) for s in jax_batched]
     assert [_dicts(s) for s in got] == jax_batched
-    solo = [tapi.decode_capture(c, batch_buffers=1, device="cpu") for c in captures]
+    solo = [tapi.decode_capture(c, batch_buffers=1, device="cpu", device_resolve=True)
+            for c in captures]
     assert [_dicts(s) for s in got] == [_dicts(s) for s in solo]
-    crc = tapi.decode_captures(captures, crcok_only=True, device="cpu")
+    crc = tapi.decode_captures(captures, crcok_only=True, device="cpu", device_resolve=True)
     assert [_dicts(s) for s in crc] == [[d for d in s if d["crcok"]] for s in jax_batched]
 
 
@@ -112,7 +113,7 @@ def test_decode_captures_tiled_equal(captures, jax_batched, frozen, monkeypatch)
 
     monkeypatch.setattr(tapi, "demod_resolve_streams", counting)
     monkeypatch.setattr(tr, "MAX_GROUP_SLOTS", 3 * 256)
-    got = tapi.decode_captures(captures, device="cpu")
+    got = tapi.decode_captures(captures, device="cpu", device_resolve=True)
     assert [_dicts(s) for s in got] == jax_batched
     assert max(s * b for s, b in calls) * 256 <= 3 * 256 and len(calls) > 3
 
@@ -133,7 +134,7 @@ def test_decode_captures_candidate_growth(captures, frozen, monkeypatch):
     monkeypatch.setattr(tapi, "demod_resolve_streams", counting)
     caps = captures[1:]
     want = japi.decode_captures(caps, device_resolve=True)
-    got = tapi.decode_captures(caps, device="cpu")
+    got = tapi.decode_captures(caps, device="cpu", device_resolve=True)
     assert [_dicts(s) for s in got] == [_dicts(s) for s in want]
     assert calls[0] == 16 and max(calls) > 16
 
@@ -142,10 +143,11 @@ def test_decode_captures_host_resolve_not_ported(captures, frozen):
     """The host-resolve strategy, once refused, is ported: it decodes, and
     an empty list of captures gives an empty list."""
     got = tapi.decode_captures(captures[1:2], device_resolve=False, device="cpu")
-    assert [_dicts(s) for s in got] == [_dicts(tapi.decode_capture(captures[1], device="cpu"))]
+    assert [_dicts(s) for s in got] == [_dicts(tapi.decode_capture(captures[1], device="cpu",
+                                                                   device_resolve=True))]
     assert tapi.decode_captures([], device_resolve=False, device="cpu") == []
     assert tapi.decode_captures([b"\x7f" * 1000], device_resolve=False, device="cpu") == [[]]
-    assert tapi.decode_captures([], device="cpu") == []
+    assert tapi.decode_captures([], device="cpu", device_resolve=True) == []
 
 
 @pytest.mark.parametrize("mc", [256, 16])
@@ -172,4 +174,56 @@ def test_decode_capture_host_resolve_matches_jax(captures, frozen):
         got = tapi.decode_capture(cap, device_resolve=False, device="cpu")
         want = japi.decode_capture(cap, device_resolve=False)
         assert _dicts(got) == _dicts(want) and len(got) > 100
-        assert _dicts(got) == _dicts(tapi.decode_capture(cap, device="cpu"))
+        assert _dicts(got) == _dicts(tapi.decode_capture(cap, device="cpu", device_resolve=True))
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_auto_resolve_policy_device_on_cuda_host_on_cpu(captures, frozen, monkeypatch, tmp_path,
+                                                       device):
+    """device_resolve=None and --tpu-device-resolve auto take the device
+    resolver for cuda and the host resolver for cpu, in decode_capture,
+    decode_captures and the CLI (its pure --raw and verbose routes, with
+    their batch sizes).  The pipeline itself is built on the CPU here, so
+    without a card the cuda case is checked through the routing only."""
+    import signal
+
+    import torch
+
+    import dump1090_tpu_torch.cli as tcli
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    assert tr.use_device_resolve(device) is (device == "cuda")
+    assert tr.use_device_resolve(None) is True
+    assert tr.use_device_resolve(torch.device(device)) is (device == "cuda")
+    monkeypatch.setattr(pl, "resolve_device", lambda d: torch.device("cpu"))
+    routes = []
+    for name in ("run_device", "run", "stream_raw_device", "stream_records"):
+        real = getattr(DemodPipeline, name)
+
+        def recorder(self, *a, _name=name, _real=real, **k):
+            routes.append((_name, self.cfg.batch_buffers, self.cfg.dispatch_groups))
+            return _real(self, *a, **k)
+
+        monkeypatch.setattr(DemodPipeline, name, recorder)
+    for name in ("_decode_captures_device", "_decode_captures_host"):
+        monkeypatch.setattr(tapi, name, lambda caps, _name=name, **k: routes.append(_name) or [])
+
+    dev = device == "cuda"
+    tapi.decode_capture(captures[1], device=device)
+    tapi.decode_captures(captures[1:2], device=device)
+    path = tmp_path / "cap.bin"
+    path.write_bytes(captures[1])
+    saved = signal.getsignal(signal.SIGPIPE)  # the CLI restores C semantics on it
+    try:
+        assert tcli.main(["--device", device, "--ifile", str(path), "--raw"]) == 0
+        assert tcli.main(["--device", device, "--ifile", str(path), "--onlyaddr"]) == 0
+    finally:
+        signal.signal(signal.SIGPIPE, saved)
+    assert routes == (
+        [("run_device", 16, 1), "_decode_captures_device", ("stream_raw_device", 64, 8),
+         ("run_device", 64, 8)] if dev else
+        [("run", 16, 1), "_decode_captures_host", ("stream_records", 16, 1), ("run", 16, 1)])
+    # an explicit choice wins over the policy on either device
+    routes.clear()
+    tapi.decode_capture(captures[1], device=device, device_resolve=not dev)
+    assert routes == [("run", 16, 1)] if dev else [("run_device", 16, 1)]

@@ -37,7 +37,7 @@ MODES = {
     "onlyaddr_metric": ("--onlyaddr", "--metric"),
 }
 JAX_CLI = ("-m", "dump1090_tpu", "--tpu-backend", "cpu", "--tpu-device-resolve", "on")
-PORT_CLI = ("-m", "dump1090_tpu_torch", "--device", "cpu")
+PORT_CLI = ("-m", "dump1090_tpu_torch", "--device", "cpu", "--tpu-device-resolve", "on")
 
 
 def _env(cache_dir: Path) -> dict:
@@ -198,15 +198,31 @@ def test_snip_equals_jax(golden_dir):
 def test_cli_refuses_what_is_not_ported(capsys):
     from dump1090_tpu_torch.cli import parse_args
 
-    for args in (["--ifile", "x.bin", "--raw", "--tpu-front", "mask"],
-                 ["--raw"],  # live RTL-SDR input
-                 ["--ifile", "x.bin", "--gain", "10"],
-                 ["--ifile", "x.bin", "--tpu-shard-time", "2"]):
+    # only --tpu-shard-time is refused; the cases that were refused before
+    # it now parse
+    with pytest.raises(SystemExit) as e:
+        parse_args(["--ifile", "x.bin", "--tpu-shard-time", "2"])
+    assert e.value.code == 2
+    out, err = capsys.readouterr()
+    assert "not yet ported" in err and out == ""
+    assert parse_args(["--ifile", "x.bin", "--raw", "--tpu-front", "mask"]).front == "mask"
+    o = parse_args(["--raw"])  # live RTL-SDR input
+    assert (o.filename, o.raw, o.dev_index, o.gain) == (None, True, 0, 999999)
+    assert parse_args(["--ifile", "x.bin", "--gain", "10"]).gain == 100
+    o = parse_args(["--device-index", "2x", "--gain", "-10.5", "--enable-agc", "--freq", "1e9",
+                    "--ppm", "-3", "--tpu-preload", "staged", "--tpu-front", "packed-plain-mxu",
+                    "--tpu-profile", "p", "--tpu-backend", "cpu"])
+    assert (o.dev_index, o.gain, o.enable_agc, o.freq, o.ppm, o.preload, o.front, o.profile_dir,
+            o.device) == (2, -105, True, 1, -3, "staged", "packed-plain-mxu", "p", "cpu")
+    assert parse_args(["--tpu-backend", "gpu"]).device == "cuda"
+    for flag, value, want in (("--tpu-front", "packed-fast", "expected mask|packed"),
+                              ("--tpu-preload", "eager", "expected auto|staged|off"),
+                              ("--tpu-backend", "tpu", "use --device cuda|cpu")):
         with pytest.raises(SystemExit) as e:
-            parse_args(args)
-        assert e.value.code == 2
+            parse_args(["--ifile", "x.bin", flag, value])
+        assert e.value.code == 1
         out, err = capsys.readouterr()
-        assert "not yet ported" in err and out == ""
+        assert want in err and out == ""
     o = parse_args(["--ifile", "x.bin", "--net", "--onlyaddr", "--no-crc-check", "--metric",
                     "--interactive", "--interactive-rows", "9", "--interactive-ttl", "5", "--loop",
                     "--net-ro-port", "1", "--net-ri-port", "2x", "--net-http-port", "3",
@@ -263,7 +279,7 @@ def test_interactive_equals_jax(monkeypatch, tmp_path, golden_dir):
     monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0)
     monkeypatch.setattr(time, "sleep", lambda s: None)
     args = ["--ifile", str(path), "--interactive", "--interactive-rows", "12"]
-    got = _main_inprocess(tcli.main, ["--device", "cpu", *args])
+    got = _main_inprocess(tcli.main, ["--device", "cpu", "--tpu-device-resolve", "on", *args])
     want = _main_inprocess(jcli.main, ["--tpu-backend", "cpu", "--tpu-device-resolve", "on",
                                        *args])
     assert got == want
@@ -309,3 +325,78 @@ def test_host_resolve_cli_equals_device_resolve_and_jax(outputs, golden_dir, syn
     assert got == outputs[(name, "port", mode)] == outputs[(name, "jax", mode)]
     if name == "synth":
         assert got == _main_inprocess(jcli.main, ["--tpu-backend", "cpu", *args])
+
+
+FRONTS = ["mask", "packed", "packed-mxu", "packed-plain", "packed-plain-mxu"]
+
+
+@pytest.fixture(scope="module")
+def jax_front_outputs(tmp_path_factory, synth_path):
+    """The JAX CLI's --raw under each --tpu-front, with its resolver on the
+    host (16-buffer batches: the front runs in its demod_batch); one process
+    each, since the JAX package reads the front when it first traces."""
+    env = _env(tmp_path_factory.mktemp("jaxcache"))
+    return _run_many({f: ("-m", "dump1090_tpu", "--tpu-backend", "cpu", "--tpu-device-resolve",
+                          "off", "--tpu-front", f, "--ifile", str(synth_path), "--raw")
+                      for f in FRONTS}, env)
+
+
+@pytest.mark.parametrize("front", FRONTS)
+def test_tpu_front_equals_jax_cli(outputs, jax_front_outputs, synth_path, front, monkeypatch):
+    """--tpu-front v: the port's --raw with the resolver on the host
+    (demod_batch) and on the device (_group_front) equals the JAX CLI's
+    --tpu-front v, and the environment is left as it was."""
+    import dump1090_tpu_torch.cli as tcli
+
+    monkeypatch.delenv("DUMP1090_TPU_FRONT", raising=False)
+    args = ["--device", "cpu", "--ifile", str(synth_path), "--raw", "--tpu-front", front]
+    host = _main_inprocess(tcli.main, args)
+    on = _main_inprocess(tcli.main, [*args, "--tpu-device-resolve", "on", "--tpu-batch", "2"])
+    assert "DUMP1090_TPU_FRONT" not in os.environ
+    assert host == on == jax_front_outputs[front] == outputs[("synth", "port", "raw")]
+
+
+@pytest.mark.parametrize("preload", ["staged", "off"])
+def test_tpu_preload_equals_auto_and_jax_cli(outputs, synth_path, monkeypatch, tmp_path,
+                                             preload):
+    """--tpu-preload staged|off on the device path: the same bytes as the
+    default (auto) and as the JAX CLI's --tpu-preload of the same mode."""
+    import dump1090_tpu.cli as jcli
+    import dump1090_tpu_torch.cli as tcli
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jaxcache"))
+    args = ["--ifile", str(synth_path), "--raw", "--tpu-device-resolve", "on", "--tpu-batch", "2",
+            "--tpu-preload", preload]
+    got = _main_inprocess(tcli.main, ["--device", "cpu", *args])
+    assert got == outputs[("synth", "port", "raw")]
+    assert got == _main_inprocess(jcli.main, ["--tpu-backend", "cpu", *args])
+
+
+def test_tpu_profile_writes_a_trace(outputs, synth_path, tmp_path):
+    """--tpu-profile <dir>: the same stdout, and a Chrome trace of the
+    decode in <dir> that names the decode's operators."""
+    import dump1090_tpu_torch.cli as tcli
+
+    prof = tmp_path / "prof"
+    got = _main_inprocess(tcli.main, ["--device", "cpu", "--tpu-device-resolve", "on",
+                                      "--ifile", str(synth_path), "--raw", "--tpu-profile",
+                                      str(prof)])
+    assert got == outputs[("synth", "port", "raw")]
+    traces = list(prof.glob("dump1090_tpu_torch.*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::topk" or e.get("name") == "aten::cumsum" for e in events)
+
+
+def test_tpu_backend_is_an_alias_of_device(outputs, synth_path, capsys):
+    """--tpu-backend cpu runs as --device cpu; tpu (or any other name)
+    exits 1 naming --device."""
+    import dump1090_tpu_torch.cli as tcli
+
+    got = _main_inprocess(tcli.main, ["--tpu-backend", "cpu", "--tpu-device-resolve", "on",
+                                      "--ifile", str(synth_path), "--raw"])
+    assert got == outputs[("synth", "port", "raw")]
+    r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--tpu-backend", "tpu",
+                        "--ifile", str(synth_path), "--raw"], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 1 and r.stdout == "" and "--device" in r.stderr

@@ -143,7 +143,8 @@ def test_decode_captures_on_card_equals_cpu(cuda, monkeypatch):
     monkeypatch.setattr(time, "time", lambda: float(NOW))
     data, _ = planted_capture(4, 60, seed=5, noise_sigma=3.0)
     caps = [data, data[: 2 * 262144], data[262144:]]
-    outs = {dev: decode_captures(caps, device=dev) for dev in ("cuda", "cpu")}
+    outs = {dev: decode_captures(caps, device=dev, device_resolve=True)
+            for dev in ("cuda", "cpu")}
     assert outs["cuda"] == outs["cpu"] and all(outs["cuda"])
 
 
@@ -248,3 +249,70 @@ def test_host_path_on_card_equals_cpu_with_k1_checked_at_its_shapes(cuda, monkey
         assert outs["cuda"] == outs["cpu"] and outs["cuda"][2] == 1024
         assert sum(m.crcok for m in msgs) > 2000
     assert {(16, 256), (1, 256), (1, 1024)} <= set(shapes)
+
+
+@pytest.mark.parametrize("front", ["packed", "packed-mxu", "packed-plain", "packed-plain-mxu"])
+def test_front_variants_on_card_equal_mask_and_cpu(cuda, front):
+    """Each packed front on the card, through _group_front at the live and
+    the file shapes' candidate counts, gives the mask form's (n, pos) on
+    the card and its own on the CPU; the file decode under it gives the
+    mask decode's bytes."""
+    from dump1090_tpu_torch.io.sources import iq_buffers
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops.resolve import _group_front
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    data, _ = planted_capture(4, 150, seed=41, noise_sigma=3.0)
+    xg = torch.from_numpy(np.stack(list(iq_buffers(io.BytesIO(data))))).reshape(2, 2, -1)
+    for mc in (64, 256, 4096):
+        outs = {}
+        for dev, f in (("cuda", front), ("cuda", "mask"), ("cpu", front)):
+            _, n, pos = _group_front(xg.to(dev), scan_len=131070, max_candidates=mc, front=f)
+            outs[(dev, f)] = (n.cpu(), pos.cpu())
+        ref = outs[("cuda", "mask")]
+        for got in outs.values():
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    raw = {}
+    for f in ("mask", front):
+        p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2, front=f),
+                          clock=lambda: NOW, device="cuda")
+        raw[f] = b"".join(p.stream_raw_device(io.BytesIO(data)))
+    assert raw[front] == raw["mask"] and raw["mask"]
+
+
+def test_live_paths_on_card_equal_cpu(cuda, tmp_path, monkeypatch):
+    """The stub radio's four paced buffers through run_source_device and
+    run_source on the card (after a warm-up) against run_source on the CPU:
+    the same messages and counters, K1 and K2 launched on the device path."""
+    import subprocess
+    from pathlib import Path
+
+    from dump1090_tpu_torch.io.rtlsdr import RtlSdrSource
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    lib = tmp_path / "librtlsdr_stub.so"
+    src = Path(__file__).resolve().parent / "stub_rtlsdr.c"
+    try:
+        subprocess.run(["gcc", "-shared", "-fPIC", str(src), "-o", str(lib)], check=True,
+                       capture_output=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        pytest.skip(f"cannot build stub librtlsdr: {e}")
+    data, _ = planted_capture(4, 150, seed=42, noise_sigma=3.0)
+    (tmp_path / "air.bin").write_bytes(data)
+    monkeypatch.setenv("DUMP1090_TPU_LIBRTLSDR", str(lib))
+    monkeypatch.setenv("RTLSDR_STUB_DATA", str(tmp_path / "air.bin"))
+    monkeypatch.setenv("RTLSDR_STUB_DELAY_US", "200000")
+    outs = {}
+    for dev, method in (("cuda", "run_source_device"), ("cuda", "run_source"),
+                        ("cpu", "run_source")):
+        DemodPipeline(PipelineConfig(), clock=lambda: NOW, device=dev).run_device(
+            io.BytesIO(data), lambda mm: None)
+        p, msgs = DemodPipeline(PipelineConfig(), clock=lambda: NOW, device=dev), []
+        _cuda.reset_launches()
+        getattr(p, method)(RtlSdrSource(err=io.StringIO()).buffers(), msgs.append)
+        if method == "run_source_device":
+            assert _cuda.launches["gather_windows"] >= 4 and _cuda.launches["resolve_words"] >= 4
+        outs[(dev, method)] = ([dataclasses.astuple(m) for m in msgs], dataclasses.astuple(p.stats))
+    assert len(set(map(repr, outs.values()))) == 1 and outs[("cpu", "run_source")][0]

@@ -1,9 +1,10 @@
-"""The port stands alone: no file of dump1090_tpu_torch/ (nor chip_smoke.py)
-imports jax or dump1090_tpu, it decodes (file decode, decode_captures, the
-message hub over run_device, and the host-resolve path with its C++
-runtime, its Python twin and the --debug dumps) with both made
-unimportable, and its entry points refuse to fall back to the CPU when no
-card is present."""
+"""The port stands alone: no file of dump1090_tpu_torch/ (io/rtlsdr.py among
+them, nor chip_smoke.py) imports jax or dump1090_tpu, it decodes (file
+decode, decode_captures, the message hub over run_device, the host-resolve
+path with its C++ runtime, its Python twin and the --debug dumps, the
+packed fronts and live buffers through run_source_device and run_source)
+with both made unimportable, and its entry points, the live CLI among
+them, refuse to fall back to the CPU when no card is present."""
 
 import ast
 import subprocess
@@ -29,7 +30,7 @@ def _imported_modules(path: Path):
 
 def test_no_file_imports_jax_or_the_jax_package():
     files = sorted((REPO / "dump1090_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 10 and REPO / "dump1090_tpu_torch" / "io" / "rtlsdr.py" in files
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -50,7 +51,7 @@ want = b"".join(b"*" + c.hex().encode() + b";\\n" for _, _, c, _ in planted)
 assert out == want, (out, want)
 import dump1090_tpu_torch
 msgs = dump1090_tpu_torch.decode_captures([data, data[:200_000]], crcok_only=True,
-                                          device="cpu")
+                                          device="cpu", device_resolve=True)
 assert [b"*" + m.msg[: m.msgbits // 8].hex().encode() + b";\\n" for m in msgs[0]] \
     == want.splitlines(keepends=True)
 assert len(msgs[1]) > 0
@@ -84,6 +85,21 @@ assert dump.getvalue().count("--- Decoded with good CRC") == 20
 host = dump1090_tpu_torch.decode_captures([data], crcok_only=True, device="cpu",
                                           device_resolve=False)
 assert [m.msg for m in host[0]] == [m.msg for m in msgs[0]]
+# live input: the RTL-SDR source binds librtlsdr at run time, and live
+# buffers decode through both live paths under a packed front
+from dump1090_tpu_torch.io.rtlsdr import RtlSdrSource, RtlSdrUnavailable
+from dump1090_tpu_torch.io.sources import iq_buffers
+try:
+    RtlSdrSource(lib_path="/nonexistent/librtlsdr.so")
+    raise AssertionError("no RtlSdrUnavailable")
+except RtlSdrUnavailable:
+    pass
+for method in ("run_source_device", "run_source"):
+    lp = DemodPipeline(PipelineConfig(front="packed-mxu"), device="cpu",
+                       clock=lambda: 1_700_000_000)
+    live = []
+    getattr(lp, method)(iq_buffers(io.BytesIO(data)), live.append)
+    assert [m.msg for m in live if m.crcok] == [m.msg for m in msgs[0]], method
 assert not any(m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
                for m, v in sys.modules.items() if v is not None)
 print("ok", p.stats.goodcrc)
@@ -119,3 +135,7 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
             cwd=REPO, capture_output=True,
         )
         assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
+    # live input (no --ifile): the card is asked for before the radio
+    r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--raw"], cwd=REPO,
+                       capture_output=True)
+    assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""

@@ -80,16 +80,24 @@ def test_stream_raw_device_matches_jax(capture, jax_results, mode, depth):
 
 
 def test_preload_and_streaming_ingest_identical(capture, jax_results, tmp_path):
-    """A regular file takes the preload strategy, a BytesIO the streaming
-    reader thread; both give the JAX package's bytes."""
+    """A regular file takes the preload strategy ("auto": every group
+    uploaded first; "staged": one group, then the rest on a reader thread),
+    a BytesIO or preload "off" the streaming reader thread; all give the
+    JAX package's bytes, and so does the JAX package's own staged preload."""
     f = tmp_path / "cap.bin"
     f.write_bytes(capture)
     raw_j = jax_results["fix"][0]
-    for preload in ("auto", "off"):
+    for preload in ("auto", "staged", "off"):
         p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2, preload=preload),
                           clock=lambda: NOW, device="cpu")
         with open(f, "rb") as fh:
             assert b"".join(p.stream_raw_device(fh)) == raw_j
+    with open(f, "rb") as fh:
+        pj = JaxPipeline(JaxPipelineConfig(batch_buffers=2, dispatch_groups=2, max_candidates=16,
+                                           preload="staged"), clock=lambda: NOW)
+        assert b"".join(pj.stream_raw_device(fh)) == raw_j
+    with pytest.raises(ValueError, match="expected auto|staged|off"):
+        DemodPipeline(PipelineConfig(preload="eager"), device="cpu")
 
 
 def test_state_carried_from_jax_into_port(capture):
@@ -167,13 +175,14 @@ def _dispatch_log(monkeypatch):
     return log
 
 
-@pytest.mark.parametrize("kind", ["file", "throttled", "looped"])
+@pytest.mark.parametrize("kind", ["file", "throttled", "looped", "staged", "live"])
 def test_dispatch_ahead_auto_depth_and_no_preload_for_live_sources(capture, tmp_path,
                                                                   monkeypatch, kind):
     """The auto depth is 3 for a seekable file, 1 for a looped or throttled
     one (and such sources stream through the reader thread instead of being
-    preloaded: a looped file never ends).  The looped decode equals the
-    file read three times over."""
+    preloaded: a looped file never ends), 1 under the staged preload (its
+    point is the first message) and 1 for live buffers with no stream.  The
+    looped decode equals the file read three times over."""
     import itertools
 
     from dump1090_tpu_torch.io import sources
@@ -182,14 +191,21 @@ def test_dispatch_ahead_auto_depth_and_no_preload_for_live_sources(capture, tmp_
     f = tmp_path / "cap.bin"
     f.write_bytes(capture * (1 if kind == "looped" else 3))
     cfg = dict(batch_buffers=2, dispatch_groups=1, max_candidates=512,
-               loop=kind == "looped", throttle_s=0.001 if kind == "throttled" else 0.0)
+               loop=kind == "looped", throttle_s=0.001 if kind == "throttled" else 0.0,
+               preload="staged" if kind == "staged" else "auto")
     log = _dispatch_log(monkeypatch)
     p = DemodPipeline(PipelineConfig(**cfg), clock=lambda: NOW, device="cpu")
+    # the new cases need only the first fetch: two batches
+    n_batches = 2 if kind in ("staged", "live") else 6
     with open(f, "rb") as fh:
-        batches = list(itertools.islice(p._device_batches(fh, packed=False), 6))
+        if kind == "live":
+            gen = p._device_batches(None, packed=False, buffers=sources.iq_buffers(fh))
+        else:
+            gen = p._device_batches(fh, packed=False)
+        batches = list(itertools.islice(gen, n_batches))
     depth = 3 if kind == "file" else 1
     assert log[: depth + 2] == ["D"] * (depth + 1) + ["F"]
-    assert len(batches) == 6
+    assert len(batches) == n_batches
     if kind == "looped":
         flat = DemodPipeline(PipelineConfig(**dict(cfg, loop=False)), clock=lambda: NOW,
                              device="cpu")
@@ -213,6 +229,52 @@ def test_run_device_emits_under_the_callers_lock(capture):
     p.run_device(io.BytesIO(capture), lambda mm: held.append(lock._is_owned()))
     assert len(held) > 100 and all(held)
     assert not lock._is_owned()
+
+
+def test_run_source_device_equals_run_device_and_syncs_the_cache_when_cut(capture, monkeypatch):
+    """Live buffers (no stream) through run_source_device, in two calls that
+    chain through the host cache, give run_device's messages on the same
+    bytes; a decode cut by KeyboardInterrupt while it hands over a group's
+    messages still syncs the device cache of the groups it delivered back
+    to the host cache (--tpu-state-save reads it): the cache that decoding
+    only those groups leaves."""
+    from dump1090_tpu_torch.io.sources import iq_buffers
+
+    def make():
+        return DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=1),
+                             clock=lambda: NOW, device="cpu")
+
+    want, got = [], []
+    p = make()
+    p.run_device(io.BytesIO(capture), want.append)
+    bufs = list(iq_buffers(io.BytesIO(capture)))
+    live = make()
+    live.run_source_device(bufs[:4], got.append)
+    after_two_groups = live.cache.addr.copy(), live.cache.ts.copy()
+    live.run_source_device(bufs[4:], got.append)
+    assert [dataclasses.astuple(m) for m in got] == [dataclasses.astuple(m) for m in want]
+    assert _counters(live.stats) == _counters(p.stats)
+    np.testing.assert_array_equal(live.cache.addr, p.cache.addr)
+
+    # cut while the second group's messages are handed over: the first two
+    # groups were delivered
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    cut, calls, real = make(), [], pl.messages_from_device_arrays
+
+    def decode(*a):
+        calls.append(1)
+        if len(calls) == 2:
+            raise KeyboardInterrupt
+        return real(*a)
+
+    monkeypatch.setattr(pl, "messages_from_device_arrays", decode)
+    with pytest.raises(KeyboardInterrupt):
+        cut.run_device(io.BytesIO(capture), lambda mm: None)
+    monkeypatch.undo()
+    assert (cut.cache.addr != 0).any()
+    np.testing.assert_array_equal(cut.cache.addr, after_two_groups[0])
+    np.testing.assert_array_equal(cut.cache.ts, after_two_groups[1])
 
 
 def test_raw_input_threads_and_run_device_share_the_hub_under_the_lock(capture):
