@@ -43,7 +43,15 @@ drives two paths over a synthetic dense capture, checking what comes out:
     transfers through run_source_device at a 200 ms pace against
     run_source and run_device, the same at the radio's 65.536 ms pace with
     drops and the time per buffer, and the live CLI in this process and as
-    a subprocess over one transfer).
+    a subprocess over one transfer);
+  * the time-sharded decode (`sharded`: api.decode_capture_sharded on
+    meshes that repeat the one card, K1 in every shard and K2 over the
+    candidate segments): meshes (1, 1), (1, 4) and (2, 4) with both
+    resolve strategies in three decoder modes against the unsharded decode
+    and the CPU, a (32, 2) mesh that grows both shapes, --tpu-shard-time 1
+    against --raw, the multi-process worker at world size 1, K1 and K2
+    against their plain versions at this path's shapes, and the (1, 4) and
+    (2, 4) decodes of 64 dense buffers timed (counted).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -1470,6 +1478,220 @@ def profile_phase(first: Path, raw_want: bytes, tmp: Path) -> dict:
     return launches
 
 
+def straddle_block(sp: int) -> tuple:
+    """The synthetic air of the JAX package's multi-chip dry run
+    (__graft_entry__.py::dryrun_multichip), on one block: 3*sp clean DF17
+    frames over silence, three in each of the sp shards of the first
+    buffer, the third of them across the shard's right edge (the last one
+    into the buffer's post-scan tail).  Positions count from the buffer's
+    start, whose first 238 samples are the initial silent carry.  Returns
+    (262144 IQ bytes, the frames in order)."""
+    from dump1090_tpu_torch.constants import BLOCK_SAMPLES, CARRY_SAMPLES, SCAN_POSITIONS
+    from dump1090_tpu_torch.utils.synth import frame_to_iq, make_df17_frame
+
+    shard = -(-SCAN_POSITIONS // sp)
+    iq = np.full(2 * BLOCK_SAMPLES, 127, dtype=np.uint8)
+    frames = []
+    for s in range(sp):
+        for k, at in enumerate((shard // 3, 2 * shard // 3, shard - 120)):
+            frame = make_df17_frame(0x4D2023 + 3 * s + k)
+            x = frame_to_iq(frame, pad_before=0, pad_after=0)
+            off = 2 * (s * shard + at - CARRY_SAMPLES)
+            iq[off:off + len(x)] = x
+            frames.append(frame)
+    return iq.tobytes(), frames
+
+
+def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> dict:
+    """The time-sharded decode (api.decode_capture_sharded: K1 gathers each
+    shard's windows, K2 replays the candidate segments) on one card, meshes
+    repeating cuda:0.
+
+    Correctness, on the dry run's air (straddle_block, sp = 4) followed by
+    4 dense blocks, max_candidates starting at 16 (it grows): meshes (1, 1),
+    (1, 4) and (2, 4), device_resolve True and False, in the three decoder
+    modes (default, --aggressive, --no-fix), every message field and the 8
+    counters equal to the unsharded decode (DemodPipeline.run_device, the
+    engine of decode_capture) on the card and to the same call on the CPU,
+    and every clean planted frame found in order; a (32, 2) mesh over 32
+    dense buffers, from max_candidates 64, grows the emitted-message room
+    too and equals the unsharded decode; --tpu-shard-time 1 --raw through cli.main byte-equal
+    to --raw; initialize_from_env() is False with no launcher variables, and
+    the multi-process worker passes at world size 1 with 4 shards on the
+    card.  K1 and K2 are held against their plain versions at the shapes
+    of the sharded path.  Measurement, counted: the (1, 4) and (2, 4)
+    decodes with the device resolve over 64 dense buffers (wall time,
+    Msamples/s).  Returns the launches of the (2, 4) run and the kernel
+    checks."""
+    import os
+
+    from dump1090_tpu_torch import api, decode_capture_sharded
+    from dump1090_tpu_torch.constants import BLOCK_SAMPLES
+    from dump1090_tpu_torch.models.decoder import DecoderConfig, DecoderStats, IcaoCache
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda, resolve
+    from dump1090_tpu_torch.ops.gather import gather_windows_plain
+    from dump1090_tpu_torch.parallel import multihost, multihost_worker, sharding
+
+    t_phase = time.perf_counter()
+    air, frames = straddle_block(4)
+    capture = air + b"".join(blocks[:4])
+    want = [frames + [f for b, _, f, nflip in planted if b < 4 and nflip == 0]]
+    modes = {"default": {}, "aggressive": {"aggressive": True}, "no-fix": {"fix_errors": False}}
+
+    def mesh(dp: int, sp: int, d) -> sharding.Mesh:
+        return sharding.Mesh([[d] * sp for _ in range(dp)])
+
+    def unsharded(data: bytes, cfg, d) -> tuple:
+        p = DemodPipeline(PipelineConfig(decoder=cfg), clock=lambda: NOW, device=d)
+        out = []
+        p.run_device(io.BytesIO(data), out.append)
+        return [dataclasses.asdict(m) for m in out], dataclasses.astuple(p.stats)
+
+    def sharded(data: bytes, m, dr: bool, cfg, mc: int = 16) -> tuple:
+        st, cache = DecoderStats(), IcaoCache(clock=lambda: NOW)
+        msgs = decode_capture_sharded(data, mesh=m, config=cfg, stats=st, cache=cache,
+                                      max_candidates=mc, device_resolve=dr)
+        return [dataclasses.asdict(x) for x in msgs], dataclasses.astuple(st), msgs
+
+    checked = 0
+    t_matrix = time.perf_counter()
+    for mode, kw in modes.items():
+        cfg = DecoderConfig(**kw)
+        ref = unsharded(capture, cfg, dev)
+        if unsharded(capture, cfg, "cpu") != ref:
+            raise AssertionError(f"[{mode}] the unsharded decode on the card differs from the CPU")
+        for shape in ((1, 1), (1, 4), (2, 4)):
+            for dr in (True, False):
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+                card = sharded(capture, mesh(*shape, dev), dr, cfg)
+                torch.cuda.synchronize()
+                if _cuda.launches["gather_windows"] <= 0 or (dr and _cuda.launches["resolve_words"] <= 0):
+                    raise AssertionError(f"[{mode}] {shape} device_resolve={dr}: a kernel was not launched")
+                if card[:2] != ref:
+                    raise AssertionError(f"[{mode}] the {shape} mesh (device_resolve={dr}) "
+                                         f"differs from the unsharded decode")
+                if sharded(capture, mesh(*shape, "cpu"), dr, cfg)[:2] != card[:2]:
+                    raise AssertionError(f"[{mode}] the {shape} mesh (device_resolve={dr}) "
+                                         f"on the card differs from the CPU")
+                checked += check_planted([card[2]], want)
+    matrix_s = time.perf_counter() - t_matrix
+
+    # both overflows: 32 rows of dense air a group emit more than the 4096
+    # messages the device resolve starts with
+    dense32 = b"".join(blocks[:16]) * 2
+    cfg = DecoderConfig()
+    seen = []
+    real_rcs = api.resolve_candidate_segments
+
+    def counting(*a, **k):
+        seen.append((a[0].shape[1], k["max_out"]))
+        return real_rcs(*a, **k)
+
+    api.resolve_candidate_segments = counting
+    t_grow = time.perf_counter()
+    try:
+        grown = sharded(dense32, mesh(32, 2, dev), True, cfg, mc=64)
+    finally:
+        api.resolve_candidate_segments = real_rcs
+    if grown[:2] != unsharded(dense32, cfg, dev):
+        raise AssertionError("the (32, 2) mesh differs from the unsharded decode")
+    if not (max(m for m, _ in seen) > 64 and max(o for _, o in seen) > api.SHARDED_MAX_OUT):
+        raise AssertionError(f"the (32, 2) run did not grow both shapes: {sorted(set(seen))}")
+    grow_s = time.perf_counter() - t_grow
+
+    # the CLI: --tpu-shard-time 1 --raw against --raw
+    path = tmp / "sharded.bin"
+    path.write_bytes(capture)
+    run_cli(["--ifile", str(path), "--raw"], tmp / "raw.txt")
+    cli_s = run_cli(["--ifile", str(path), "--raw", "--tpu-shard-time", "1"], tmp / "shard1.txt")
+    raw = (tmp / "raw.txt").read_bytes()
+    if (tmp / "shard1.txt").read_bytes() != raw or len(raw.split()) < len(want[0]):
+        raise AssertionError("--tpu-shard-time 1 --raw differs from --raw")
+
+    # the multi-process session at world size 1 (one card cannot hold two
+    # NCCL ranks)
+    env = dict(os.environ)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        os.environ.pop(k, None)
+    try:
+        if multihost.initialize_from_env() is not False:
+            raise AssertionError("initialize_from_env() started a session with no launcher variables")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = multihost_worker.main(["0", "1", "0", "--local-shards", "4"])
+    finally:
+        os.environ.clear()
+        os.environ.update(env)
+    if rc != 0 or "MULTIHOST PASS" not in out.getvalue():
+        raise AssertionError(f"the multi-process worker failed at world size 1: {out.getvalue()}")
+
+    # measurement, counted: 64 dense buffers, device resolve; K1's and K2's
+    # inputs recorded at the first call for the kernel checks
+    data64 = b"".join(blocks[:16]) * 4
+    want64 = [[f for b, _, f, nflip in planted if nflip == 0] * 4]
+    timing, inputs = {}, {}
+    real_gather, real_walk = sharding.gather_windows, resolve.resolve_words
+
+    def gather_rec(m_pad, pos):
+        inputs.setdefault("gather", (m_pad, pos))
+        return real_gather(m_pad, pos)
+
+    def walk_rec(*a, **k):
+        inputs.setdefault("walk", a)
+        return real_walk(*a, **k)
+
+    launches, outs = None, {}
+    for shape in ((1, 4), (2, 4)):
+        inputs.clear()  # the kernel checks take the (2, 4) run's first calls
+        sharding.gather_windows, resolve.resolve_words = gather_rec, walk_rec
+        try:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t1 = time.perf_counter()
+            outs[shape] = sharded(data64, mesh(*shape, dev), True, cfg, mc=128)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            sharding.gather_windows, resolve.resolve_words = real_gather, real_walk
+        launches = dict(_cuda.launches)
+        timing[f"{shape[0]}x{shape[1]}"] = {
+            "wall_s": wall, "msps": 64 * BLOCK_SAMPLES / wall / 1e6, "launches": launches,
+            "messages": len(outs[shape][2])}
+        check_planted([outs[shape][2]], want64)
+    if outs[(1, 4)][:2] != outs[(2, 4)][:2]:
+        raise AssertionError("the (1, 4) and (2, 4) decodes of the 64 buffers differ")
+
+    # K1 and K2 at the sharded path's shapes against their plain versions
+    m_pad, pos = inputs["gather"]
+    err_g = max_abs_err(sharding.gather_windows(m_pad, pos), gather_windows_plain(m_pad, pos))
+    walk = inputs["walk"]
+    got = resolve.resolve_words(*walk)
+    err_w = max(max_abs_err(g, w) for g, w in zip(got, resolve.resolve_words_plain(*walk)))
+    torch.cuda.synchronize()
+    if err_g or err_w:
+        raise AssertionError(f"a kernel differs from its plain version on the sharded path: "
+                             f"K1 {err_g}, K2 {err_w}")
+    kernels = {
+        "gather_windows": {"m_pad": list(m_pad.shape), "pos": list(pos.shape), "max_abs_err": err_g,
+                           "ms": cuda_ms(lambda: sharding.gather_windows(m_pad, pos), 50),
+                           "plain_ms": cuda_ms(lambda: gather_windows_plain(m_pad, pos), 10)},
+        "resolve_words": {"slots": walk[0].numel(), "segments": walk[4].numel(),
+                          "steps": int(walk[4].clamp(0, walk[-1]).sum().item()),
+                          "max_abs_err": err_w,
+                          "ms": cuda_ms(lambda: resolve.resolve_words(*walk), 10)},
+    }
+    emit({"phase": "sharded", "capture_buffers": len(capture) // 262144,
+          "meshes": ["1x1", "1x4", "2x4"], "modes": list(modes), "equal_unsharded": True,
+          "equal_cpu": True, "planted_checked": checked, "matrix_s": matrix_s,
+          "grow_s": grow_s, "grown_32x2": sorted(set(seen)),
+          "cli_shard1_raw_equal": True, "cli_s": cli_s, "initialize_from_env": False,
+          "worker": out.getvalue().strip(), "dense64": timing, "kernels_sharded": kernels,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches, kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1678,6 +1900,10 @@ def main() -> int:
         profile_launches = profile_phase(first, runs["cuda"][0], tmp)
         first.unlink()
 
+    # ---- the time-sharded decode ------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        sharded_launches, _ = sharded_phase(blocks, planted, dev, Path(tmp))
+
     paths = {
         "file_decode": (launches, ("gather_windows", "resolve_words")),
         "decode_captures": (captures_launches, ("gather_windows", "resolve_words_streams")),
@@ -1696,6 +1922,7 @@ def main() -> int:
         "live": (live_launches, ("gather_windows", "resolve_words")),
         "live_cli": (live_cli_launches, ("gather_windows", "resolve_words")),
         "profile": (profile_launches, ("gather_windows", "resolve_words")),
+        "sharded": (sharded_launches, ("gather_windows", "resolve_words")),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():
@@ -1716,8 +1943,11 @@ def main() -> int:
     k1["launches"] = launches["gather_windows"]
     k2["launches"] = launches["resolve_words"]
     k3["launches"] = captures_launches["resolve_words_streams"]
+    # and on the time-sharded decode (K1 in every shard, K2 over the segments)
+    for r in (k1, k2, k3):
+        r["launches_sharded"] = sharded_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded")
     emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

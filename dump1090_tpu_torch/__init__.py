@@ -8,9 +8,10 @@ names so each ported function can be found and held bit for bit against its
 counterpart.  It imports torch and numpy only: never jax, and nothing from
 `dump1090_tpu` (modules it needs from there are copied).
 
-Programmatic use: `decode_capture` (one capture) and `decode_captures`
-(many independent captures sharing each dispatch) return ModesMessage
-lists; `models.pipeline.DemodPipeline` is the streaming decoder behind the
+Programmatic use: `decode_capture` (one capture), `decode_captures`
+(many independent captures sharing each dispatch) and
+`decode_capture_sharded` (one capture, each buffer's timeline sharded over
+a mesh of devices, parallel/) return ModesMessage lists; `models.pipeline.DemodPipeline` is the streaming decoder behind the
 CLI (`run_source_device` and `run_source` take the buffers of a live
 `io.rtlsdr.RtlSdrSource`).
 
@@ -48,6 +49,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-from .api import decode_capture, decode_captures  # noqa: E402  (needs resolve_device)
+from .api import (  # noqa: E402  (needs resolve_device)
+    decode_capture,
+    decode_capture_sharded,
+    decode_captures,
+)
 
-__all__ = ["decode_capture", "decode_captures", "resolve_device", "__version__"]
+__all__ = ["decode_capture", "decode_capture_sharded", "decode_captures", "resolve_device",
+           "__version__"]

@@ -17,9 +17,14 @@ dump1090_tpu/api.py).
     its own cache, with the C++ runtime or its Python twin.  Per-capture
     results are bit-identical to `decode_capture` either way.
 
+  * `decode_capture_sharded` — one capture with each buffer's timeline
+    sharded over a (dp, sp) mesh of devices (parallel/sharding.py), the
+    candidate segments replayed on the device
+    (ops.resolve.resolve_candidate_segments) or on the host.
+
 Messages are ModesMessage objects (good and bad CRC, like the reference's
 useModesMessage stream); filter with `crcok_only=True` for the usable set.
-Both run on CUDA unless `device="cpu"` is given, and raise without a card.
+All run on CUDA unless `device="cpu"` is given, and raise without a card.
 """
 
 from __future__ import annotations
@@ -35,7 +40,13 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .constants import BUF_SAMPLES, FULL_LEN_SAMPLES, ICAO_CACHE_LEN, SCAN_POSITIONS
+from .constants import (
+    BLOCK_SAMPLES,
+    BUF_SAMPLES,
+    FULL_LEN_SAMPLES,
+    ICAO_CACHE_LEN,
+    SCAN_POSITIONS,
+)
 from .io.sources import iq_buffers
 from .models.decoder import (
     DecoderConfig,
@@ -48,10 +59,20 @@ from .models.pipeline import DemodPipeline, PipelineConfig, _Fetch, _upload
 from .models.resolver import BlockCandidates, resolve_block
 from .native import NativeResolver
 from .ops.demod import Candidates, demod_batch, demod_iq_block
-from .ops.resolve import demod_resolve_streams, streams_dispatch_shape, use_device_resolve
+from .ops.resolve import (
+    demod_resolve_streams,
+    normalize_max_candidates,
+    resolve_candidate_segments,
+    streams_dispatch_shape,
+    use_device_resolve,
+)
+from .parallel.sharding import HALO, Mesh, device_mesh, make_sharded_demod, merge_sharded_rows
 
 # buffers each still-active capture adds to one decode_captures round
 STREAM_BUFFERS = 4
+# emitted-message room of one group of decode_capture_sharded's device
+# resolve at the start (grows x4 on overflow, as in the JAX package)
+SHARDED_MAX_OUT = 4096
 
 
 def _as_stream(capture) -> io.BufferedIOBase:
@@ -353,3 +374,194 @@ def _decode_captures_device(
             msgs = [m for m in msgs if m.crcok]
         results.append(msgs)
     return results
+
+
+def decode_capture_sharded(
+    capture,
+    *,
+    mesh: Mesh | None = None,
+    sp: int | None = None,
+    config: DecoderConfig | None = None,
+    crcok_only: bool = False,
+    max_candidates: int = 128,
+    stats: DecoderStats | None = None,
+    cache: IcaoCache | None = None,
+    emit=None,
+    progress: dict | None = None,
+    lock=None,
+    device_resolve: bool | None = None,
+    device: str | torch.device | None = None,
+) -> list[ModesMessage]:
+    """Decode ONE capture with each buffer's timeline sharded over a device
+    mesh: reference buffers on the "dp" axis, each buffer's scan range
+    [0, SCAN_POSITIONS) owned by sp shards with 240-sample halos
+    (parallel/sharding.py), and the candidates replayed sequentially in
+    buffer order against one ICAO cache.  Bit-identical to decode_capture.
+
+    The host uploads only the raw uint8 IQ bytes, one block to each shard's
+    device, and each shard computes its own magnitudes.  With
+    device_resolve the replay runs on the device too
+    (ops.resolve.resolve_candidate_segments over the shards' candidate
+    segments, gathered on mesh.devices[0][0]; only emitted messages reach
+    the host); otherwise the merged candidate stream is replayed by the
+    host resolver (the C++ runtime, or its Python twin).  None (auto) takes
+    the device on CUDA and the host on the CPU
+    (ops.resolve.use_device_resolve).
+
+    mesh: a parallel.sharding.Mesh; by default sharding.device_mesh(sp,
+    device): the visible cards (dp = cards // sp), or (1, sp) of the CPU.
+    emit: optional callback invoked with every message in stream order (in
+    addition to the returned list).  progress: a dict whose "samples" grows
+    by each group's new samples.  lock: optional (reentrant) lock held
+    across each resolve step when another thread shares the cache and the
+    counters (the CLI passes its state lock).  A shard's candidate overflow
+    and the emitted-message overflow are detected by exact counts and
+    retried with sticky growth from the group's starting cache."""
+    import contextlib
+
+    if mesh is None:
+        mesh = device_mesh(sp, device)
+    elif device is not None and torch.device(device).type != mesh.devices[0][0].type:
+        raise ValueError(f"device {device} and the mesh's {mesh.devices[0][0]} disagree")
+    if mesh.multiprocess:
+        raise ValueError("decode_capture_sharded takes a mesh held by one process")
+    rdev = mesh.devices[0][0]
+    dp_n, sp_n = mesh.shape["dp"], mesh.shape["sp"]
+    shard_samples = -(-SCAN_POSITIONS // sp_n)
+    total = sp_n * shard_samples  # padded timeline (scan clipped by the mask)
+    if device_resolve is None:
+        device_resolve = use_device_resolve(rdev)
+
+    # chunk-valid from the start; the growth sites keep it so
+    mc_box = {"mc": normalize_max_candidates(max_candidates), "mo": SHARDED_MAX_OUT}
+    fns = {}
+
+    def get_fn():
+        mc = mc_box["mc"]
+        if mc not in fns:
+            fns[mc] = make_sharded_demod(
+                mesh, shard_samples=shard_samples, max_candidates=mc,
+                scan_total=SCAN_POSITIONS, with_tail=True, from_iq=True,
+            )
+        return fns[mc]
+
+    lock = lock if lock is not None else contextlib.nullcontext()
+    dcfg = config or DecoderConfig()
+    cache = cache if cache is not None else IcaoCache()
+    st = stats if stats is not None else DecoderStats()
+    out: list[ModesMessage] = []
+
+    def sink(mm):
+        out.append(mm)
+        if emit is not None:
+            emit(mm)
+
+    resolver = None
+    if not device_resolve:
+        try:
+            resolver = NativeResolver().resolve_block
+        except (OSError, RuntimeError):
+            resolver = resolve_block  # the Python twin: the same output
+    ca = torch.as_tensor(cache.addr.astype(np.int64).astype(np.int32), device=rdev)
+    ct = torch.as_tensor(np.clip(cache.ts, 0, 2**31 - 1).astype(np.int32), device=rdev)
+
+    stream = _as_stream(capture)
+    try:
+        it = iq_buffers(stream)
+        while True:
+            bufs = list(itertools.islice(it, dp_n))
+            if not bufs:
+                break
+            n_real = len(bufs)
+            if progress is not None:
+                progress["samples"] = progress.get("samples", 0) + n_real * BLOCK_SAMPLES
+            # raw IQ bytes, padded with 127s (zero magnitude) to the sharded
+            # timeline geometry; 2 bytes per sample
+            x = np.full((dp_n, 2 * (total + HALO)), 127, dtype=np.uint8)
+            for r, b in enumerate(bufs):
+                x[r, : min(b.shape[0], 2 * (total + HALO))] = b[: 2 * (total + HALO)]
+            iq_main, tail = x[:, : 2 * total], x[:, 2 * total:]
+            if device_resolve:
+                ca, ct = _resolve_group_on_device(
+                    get_fn, iq_main, tail, mc_box, dp_n, sp_n, ca, ct, cache, dcfg, st,
+                    sink, lock,
+                )
+                continue
+            while True:
+                cand = get_fn()(iq_main, tail)
+                try:
+                    # every row merges before any resolves, so an overflow
+                    # retry never sees a partly advanced cache
+                    rows = merge_sharded_rows(cand, SCAN_POSITIONS)
+                    break
+                except OverflowError:
+                    if mc_box["mc"] >= SCAN_POSITIONS // 2 + 1:
+                        raise
+                    mc_box["mc"] = normalize_max_candidates(mc_box["mc"] * 4)  # sticky
+            for _, bc in rows[:n_real]:
+                with lock:
+                    resolver(bc, cache, dcfg, st, sink)
+    finally:
+        if device_resolve:
+            # the device cache back into the host cache, also after a cut
+            cache.addr[:] = ca.cpu().numpy().astype(np.uint32)
+            cache.ts[:] = ct.cpu().numpy().astype(np.int64)
+        if stream is not capture:
+            stream.close()
+    if crcok_only:
+        return [m for m in out if m.crcok]
+    return out
+
+
+def _resolve_group_on_device(get_fn, iq_main, tail, mc_box, dp_n, sp_n, ca, ct, cache,
+                             dcfg, st, sink, lock):
+    """One dp-group of the sharded decode with the sequential replay on the
+    device: sharded demod -> per-shard candidate segments ->
+    ops.resolve.resolve_candidate_segments (rows = reference buffers: the
+    skip resets per row, the ICAO cache chains across everything) ->
+    emitted messages decoded statelessly on the host.  Padding rows beyond
+    the real buffer count are 127-silence and give no candidates.  An
+    exact-count overflow reruns the group from its starting cache."""
+    s_n = dp_n * sp_n
+    while True:
+        cand = get_fn()(iq_main, tail)
+        mc = mc_box["mc"]
+
+        def seg(a: torch.Tensor) -> torch.Tensor:
+            return a.reshape((s_n, mc) + tuple(a.shape[2:]))
+
+        row_id = torch.arange(dp_n, dtype=torch.int32, device=cand.pos.device)
+        count, msg, meta, stats_d, ca2, ct2 = resolve_candidate_segments(
+            seg(cand.pos), seg(cand.msg1), seg(cand.errors1), seg(cand.gate1),
+            seg(cand.msg2), seg(cand.errors2), seg(cand.gate2), cand.n.reshape(s_n),
+            row_id.repeat_interleave(sp_n), ca, ct, cache.clock(), dcfg.fix_errors,
+            dcfg.aggressive, n_rows=dp_n, max_out=mc_box["mo"], crcok_only=False,
+        )
+        n_h, count_h, msg_h, meta_h, stats_h = _Fetch([cand.n, count, msg, meta, stats_d]).get()
+        if int(n_h.max()) > mc:
+            if mc >= SCAN_POSITIONS // 2 + 1:
+                raise OverflowError(
+                    f"candidate overflow: shard reported {int(n_h.max())} "
+                    f"preambles > max_candidates {mc}"
+                )
+            mc_box["mc"] = normalize_max_candidates(mc * 4)
+            continue
+        if int(count_h) > mc_box["mo"]:
+            mc_box["mo"] *= 4
+            continue
+        break
+    c = int(count_h)
+    mms = messages_from_device_arrays(msg_h[:c], meta_h[:c])
+    # the counters and the emissions of a group under ONE lock hold: a
+    # concurrent reader (the --stats printer, the TUI) never sees the
+    # group's counters half applied
+    with lock:
+        for name, d in zip(
+            ("valid_preamble", "out_of_phase", "demodulated", "goodcrc",
+             "badcrc", "fixed", "single_bit_fix", "two_bits_fix"),
+            stats_h.tolist(),
+        ):
+            setattr(st, name, getattr(st, name) + d)
+        for mm in mms:
+            sink(mm)
+    return ca2, ct2

@@ -13,15 +13,16 @@ with the resolver on the host, pure `--raw` takes the bulk host path
 DemodPipeline.run_device and the message hub, or with the resolver on the
 host or `--debug` DemodPipeline.run and the hub.  Live input (no `--ifile`:
 io/rtlsdr.py) takes run_source_device, or run_source with the resolver on
-the host or `--debug`, one buffer a dispatch.  `--tpu-device-resolve auto`
+the host or `--debug`, one buffer a dispatch.  `--tpu-shard-time <n>` takes
+api.decode_capture_sharded: each buffer's timeline sharded over n devices
+(parallel/sharding.py).  `--tpu-device-resolve auto`
 puts the resolver on the device for cuda and on the host for cpu
 (ops.resolve.use_device_resolve).  `--net-only` does no device work.
 
 `--device cuda|cpu` picks the device; `--tpu-backend cpu|cuda|gpu` is an
-alias.  The default is cuda, and without a card the CLI stops with an error
-rather than decoding on the CPU.  `--tpu-shard-time`, the one option of the
-JAX package that is not ported, stops with a "not yet ported" error: the
-port never gives a different output without saying so.
+alias.  The default is cuda, and without a card (or, for `--tpu-shard-time
+n`, with fewer than n cards) the CLI stops with an error rather than
+decoding on the CPU.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ HELP = """\
                          ops/demod.py:front_candidates.
 --tpu-state-load <file>  Restore tracker/ICAO-cache/stats snapshot at start.
 --tpu-state-save <file>  Save a state snapshot on exit (checkpoint/resume).
+--tpu-shard-time <n>     Shard each buffer's timeline over <n> devices with
+                         overlap-save halo exchange (multi-card decode of
+                         one stream; identical output to the unsharded
+                         path).  On cpu the n shards share the CPU.
 --tpu-device-resolve <on|off|auto>
                          Run the sequential resolver on the device (on) or
                          on the host (off: the C++ runtime); auto = on for
@@ -93,12 +98,8 @@ Debug mode flags: d = Log frames decoded with errors
                   p = Log frames with bad preamble
                   n = Log network debugging info
                   j = Log frames to frames.js, loadable by debug.html.
-
-Not yet ported to this package (use python -m dump1090_tpu): --tpu-shard-time.
 """
 
-# the JAX package's CLI flags that are not ported here (each takes a value)
-_UNPORTED_WITH_VALUE = {"--tpu-shard-time"}
 # --tpu-backend names and the --device each stands for
 _BACKENDS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 
@@ -152,6 +153,7 @@ class Options:
         self.debug = ""
         self.device_resolve = "auto"
         self.device = "cuda"
+        self.shard_time: int | None = None
 
 
 def _c_atoi(s: str) -> int:
@@ -168,14 +170,6 @@ def _c_atof(s: str) -> float:
 
     m = re.match(r"[ \t\n\r\f\v]*[+-]?([0-9]+(\.[0-9]*)?|\.[0-9]+)([eE][+-]?[0-9]+)?", s)
     return float(m.group()) if m else 0.0
-
-
-def _not_ported(what: str) -> SystemExit:
-    sys.stderr.write(
-        f"dump1090_tpu_torch: {what} is not yet ported to the PyTorch/CUDA "
-        f"package; use python -m dump1090_tpu for it.\n"
-    )
-    return SystemExit(2)
 
 
 def parse_args(argv: list[str]) -> Options:
@@ -302,8 +296,8 @@ def parse_args(argv: list[str]) -> Options:
         elif arg == "--help":
             sys.stdout.write(HELP)
             raise SystemExit(0)
-        elif arg in _UNPORTED_WITH_VALUE and more:
-            raise _not_ported(f"option '{arg}'")
+        elif arg == "--tpu-shard-time" and more:
+            o.shard_time = int(nxt())
         else:
             sys.stderr.write(
                 f"Unknown or not enough arguments for option '{arg}'.\n\n"
@@ -429,12 +423,17 @@ def main(argv: list[str] | None = None) -> int:
                                  and o.filename != "-" else 1),
                 preload=o.preload, dispatch_ahead=o.dispatch_ahead, front=o.front,
             )
+        mesh = None  # --tpu-shard-time's device mesh, made before any decode
         try:
+            if o.shard_time and not live:
+                from .parallel.sharding import device_mesh
+
+                mesh = device_mesh(o.shard_time, o.device)
             pipeline = DemodPipeline(
                 cfg, device=o.device, lock=state_lock,
                 debug_flags=DebugFlags.parse(o.debug) if o.debug else None,
             )
-        except RuntimeError as e:
+        except (RuntimeError, ValueError) as e:
             sys.stderr.write(f"dump1090_tpu_torch: {e}\n")
             return 1
         stats, cache = pipeline.stats, pipeline.cache
@@ -539,6 +538,18 @@ def main(argv: list[str] | None = None) -> int:
                     pipeline.run_source_device(sdr.buffers(), on_message)
                 else:
                     pipeline.run_source(sdr.buffers(), on_message)
+            elif o.shard_time:
+                # one stream's timeline sharded over the mesh's sp axis with
+                # halo exchange (parallel/sharding.py)
+                from .api import decode_capture_sharded
+
+                progress = {"samples": 0}
+                decode_capture_sharded(
+                    stream, mesh=mesh, config=dcfg, stats=stats, cache=cache,
+                    emit=on_message, max_candidates=o.max_candidates, progress=progress,
+                    lock=state_lock,
+                )
+                pipeline.samples_in = progress["samples"]
             elif fast_dev:
                 w = sys.stdout.buffer
                 for line in pipeline.stream_raw_device(stream):

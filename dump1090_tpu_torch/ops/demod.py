@@ -516,8 +516,8 @@ def demod_batch(iq_buffers: torch.Tensor, *, scan_len: int, max_candidates: int,
     (exact count and first-K positions, in the formulation `front` names;
     see front_candidates), the window gather (K1) and both demod passes,
     with every field shaped (B, ...).  Nothing syncs the host.  Port of
-    dump1090_tpu/parallel/sharding.py::demod_batch (the single-device form;
-    the sharded forms are not ported)."""
+    dump1090_tpu/parallel/sharding.py::demod_batch (the batch-sharded form
+    run on one device; parallel/sharding.py holds the time-sharded form)."""
     if iq_buffers.dtype == torch.uint16:
         m = magnitude_from_pairs(iq_buffers)
     else:

@@ -658,20 +658,24 @@ def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
     return count, count_long, shorts, _gather_rows(msgs12, sel_l), stats
 
 
-def _postprocess_unpacked(words, msg1f, msg2f, pos, aux1, aux2, *, max_out: int):
+def _postprocess_unpacked(words, msg1f, msg2f, pos, aux1, aux2, *, max_out: int,
+                          crcok_only: bool = False):
     """Stats + unpacked emission of every batch, vectorized over the batch
     axis (the shapes of _postprocess_packed): every attempted decode, good
-    and bad CRC, in scan order, as 14 frame bytes and a meta word
-    pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1 | crcok, -1
-    beyond the count.  Returns (count (G,), msg uint8 (G, max_out, 14),
-    meta int32 (G, max_out), stats int32 (G, 8))."""
+    and bad CRC (only the good ones with crcok_only), in scan order, as 14
+    frame bytes and a meta word pos<<12 | (errorbit+1)<<4 | pass<<3 |
+    long<<2 | phase<<1 | crcok, -1 beyond the count.  Returns (count (G,),
+    msg uint8 (G, max_out, 14), meta int32 (G, max_out), stats int32 (G, 8))."""
     stats = _batch_stats(words, pos, aux1, aux2)
 
     def bit(b: int) -> torch.Tensor:
         return (words & b) != 0
 
     att1, crcok1, att2, crcok2 = bit(R_ATT1), bit(R_CRCOK1), bit(R_ATT2), bit(R_CRCOK2)
-    emask = _pairs(att1, att2)
+    if crcok_only:
+        emask = _pairs(att1 & crcok1, att2 & crcok2)
+    else:
+        emask = _pairs(att1, att2)
     count = emask.sum(dim=1, dtype=torch.int32)
     sel, ok = _first_k(emask, max_out)
     msg_out = _gather_rows(_pairs(msg1f, msg2f), sel)
@@ -808,6 +812,7 @@ def demod_resolve_group(
     max_out_short: int = 0,
     max_out_long: int = 0,
     packed: bool = True,
+    crcok_only: bool = False,
     front: str | None = None,
     marks: list | None = None,
 ):
@@ -830,7 +835,7 @@ def demod_resolve_group(
     attempted decode, good and bad CRC):
       n, count, msg uint8[G, max_out, 14], meta int32[G, max_out], stats,
       cache_addr', cache_ts'
-    where meta is pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1
+    (with crcok_only, the good-CRC decodes only) where meta is pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1
     | crcok, -1 beyond the count (models/decoder.py message_from_device
     consumes it).  Overflow is detected from the exact counts (n >
     max_candidates, count-count_long > mos or count_long > mol, count >
@@ -852,7 +857,8 @@ def demod_resolve_group(
         post = functools.partial(_postprocess_packed, max_out_short=max_out_short,
                                  max_out_long=max_out_long)
     else:
-        post = functools.partial(_postprocess_unpacked, max_out=max_out)
+        post = functools.partial(_postprocess_unpacked, max_out=max_out,
+                                 crcok_only=crcok_only)
     max_candidates = normalize_max_candidates(max_candidates)
     _mark(marks, "start")
     m, n, pos = _group_front(xg, scan_len=scan_len, max_candidates=max_candidates,
@@ -862,6 +868,102 @@ def demod_resolve_group(
         m, n, pos, cache_addr, cache_ts, now, bool(fix_errors), bool(aggressive),
         g_n=xg.shape[0], max_candidates=max_candidates, post=post, marks=marks,
     )
+
+
+def demod_resolve_batch(
+    iq_buffers: torch.Tensor,
+    cache_addr: torch.Tensor,
+    cache_ts: torch.Tensor,
+    now: int,
+    fix_errors: bool,
+    aggressive: bool,
+    *,
+    scan_len: int,
+    max_candidates: int,
+    max_out: int = 0,
+    max_out_short: int = 0,
+    max_out_long: int = 0,
+    crcok_only: bool = True,
+    packed: bool = False,
+):
+    """Single-batch convenience wrapper over demod_resolve_group (G = 1):
+    (NB, nbytes) uint8 IQ -> emitted messages.
+
+    Unpacked returns (n[NB], count, msg[max_out,14], meta[max_out], stats[8],
+    cache_addr', cache_ts'); packed returns (n, count, count_long, shorts,
+    longs, stats, cache_addr', cache_ts') -- see demod_resolve_group for the
+    layouts.  The packed format carries good-CRC messages only, so it takes
+    crcok_only=True."""
+    if packed and not crcok_only:
+        raise ValueError("the packed emission carries good-CRC messages only (crcok_only=True)")
+    outs = demod_resolve_group(
+        iq_buffers[None], cache_addr, cache_ts, now, fix_errors, aggressive,
+        scan_len=scan_len, max_candidates=max_candidates, max_out=max_out,
+        max_out_short=max_out_short, max_out_long=max_out_long, packed=packed,
+        crcok_only=crcok_only,
+    )
+    return tuple(o[0] for o in outs[:-2]) + tuple(outs[-2:])
+
+
+def resolve_candidate_segments(
+    pos, msg1, errors1, gate1, msg2, errors2, gate2, nseg, row_id,
+    cache_addr, cache_ts, now: int, fix_errors: bool, aggressive: bool, *,
+    n_rows: int, max_out: int, crcok_only: bool = False,
+):
+    """Device resolve over pre-demodulated candidate SEGMENTS: the second
+    stage of the time-sharded decode (parallel/sharding.py), the same
+    precompute, sequential walk (K2, resolve_words) and emission as
+    demod_resolve_group.
+
+    pos..gate2: (S, mc) per-segment candidate fields on one device, with
+    stream-global positions in scan order (a segment's valid candidates are
+    a contiguous prefix; empty slots hold 2**30).  nseg: int32 (S,) valid
+    candidates per segment.  row_id: int32 (S,) monotone row index in [0,
+    n_rows): the segments of one row share a reference buffer, so the
+    skip-until state resets at each row's FIRST VALID candidate (a segment
+    boundary inside a row does not reset it, unlike the buffers of
+    demod_resolve_group; that candidate may sit in a later segment when the
+    first ones are empty) and the ICAO cache chains across all.
+
+    Returns (count, msg uint8 (max_out, 14), meta int32 (max_out), stats
+    int32 (8,), cache_addr', cache_ts') in the unpacked demod_resolve_group
+    layout; the input cache tensors are never written."""
+    s_n, mc = pos.shape
+    dev = pos.device
+    n_flat = s_n * mc
+
+    def flat(a: torch.Tensor) -> torch.Tensor:
+        return a.reshape((n_flat,) + tuple(a.shape[2:]))
+
+    fe, ag = bool(fix_errors), bool(aggressive)
+    w1, msg1f, aux1 = _pass_precompute(flat(msg1), flat(errors1), flat(gate1), ag, fe)
+    w2, msg2f, aux2 = _pass_precompute(flat(msg2), flat(errors2), flat(gate2), ag, fe)
+
+    nseg_c = torch.clamp_max(nseg.to(torch.int32), mc).contiguous()
+    valid = (_iota(mc, dev) < nseg_c[:, None]).reshape(-1)
+    vi = valid.to(torch.int32)
+    # a row's first valid candidate: its exclusive running valid count
+    # equals the row's base (the valid slots of all earlier rows)
+    excl = torch.cumsum(vi, 0, dtype=torch.int32) - vi
+    seg_base = torch.cumsum(nseg_c, 0, dtype=torch.int32) - nseg_c
+    row_base = torch.full((n_rows,), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                          device=dev)
+    row_base = row_base.scatter_reduce(0, row_id.to(torch.int64), seg_base, "amin")
+    newbuf = valid & (excl == row_base[row_id.to(torch.int64)].repeat_interleave(mc))
+    pos_f = flat(pos).to(torch.int32)
+    pf = (
+        torch.clamp_max(pos_f, PF_POS_MASK)
+        | vi * PF_VALID
+        | newbuf.to(torch.int32) * PF_NEWBUF
+        | flat(gate1).to(torch.int32) * PF_GATE1
+    )
+    words, ca, ct = resolve_words(
+        pf, w1, w2, _hash_words(w1, w2), nseg_c, cache_addr.to(torch.int32).contiguous(),
+        cache_ts.to(torch.int32).contiguous(), now, mc,
+    )
+    post = functools.partial(_postprocess_unpacked, max_out=max_out, crcok_only=crcok_only)
+    count, msg, meta, stats = _emit(post, 1, words, msg1f, msg2f, pos_f, aux1, aux2)
+    return count[0], msg[0], meta[0], stats[0], ca, ct
 
 
 def demod_resolve_streams(

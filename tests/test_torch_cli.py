@@ -9,8 +9,10 @@ message hub over run_device).  Only stdout is compared: the throughput
 meter goes to stderr.  With --tpu-device-resolve off (the resolver on the
 host: stream_records for --raw, DemodPipeline.run for the rest) --raw,
 --stats and the verbose display equal the device-resolve output and the
-JAX CLI's own host path.  Also --tpu-state-save/--tpu-state-load,
---net-only (which needs no card), --snip and what the port refuses."""
+JAX CLI's own host path.  --tpu-shard-time 4 (--raw, --stats, verbose)
+equals the JAX CLI's on its 8 virtual CPU devices.  Also
+--tpu-state-save/--tpu-state-load, --net-only (which needs no card), --snip
+and the flags the port once refused."""
 
 import concurrent.futures
 import json
@@ -198,13 +200,11 @@ def test_snip_equals_jax(golden_dir):
 def test_cli_refuses_what_is_not_ported(capsys):
     from dump1090_tpu_torch.cli import parse_args
 
-    # only --tpu-shard-time is refused; the cases that were refused before
-    # it now parse
-    with pytest.raises(SystemExit) as e:
-        parse_args(["--ifile", "x.bin", "--tpu-shard-time", "2"])
-    assert e.value.code == 2
-    out, err = capsys.readouterr()
-    assert "not yet ported" in err and out == ""
+    # nothing is refused any more: --tpu-shard-time, the last flag that
+    # was, and every case refused before it now parse
+    assert parse_args(["--ifile", "x.bin", "--tpu-shard-time", "2"]).shard_time == 2
+    assert parse_args(["--tpu-shard-time", "8"]).shard_time == 8
+    assert parse_args([]).shard_time is None
     assert parse_args(["--ifile", "x.bin", "--raw", "--tpu-front", "mask"]).front == "mask"
     o = parse_args(["--raw"])  # live RTL-SDR input
     assert (o.filename, o.raw, o.dev_index, o.gain) == (None, True, 0, 999999)
@@ -400,3 +400,47 @@ def test_tpu_backend_is_an_alias_of_device(outputs, synth_path, capsys):
                         "--ifile", str(synth_path), "--raw"], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 1 and r.stdout == "" and "--device" in r.stderr
+
+
+@pytest.fixture(scope="module")
+def shard_outputs(tmp_path_factory, synth_path):
+    """--tpu-shard-time 4 on the synthetic capture: the JAX CLI on its 8
+    virtual CPU devices (a (2, 4) mesh) and the port with --device cpu (a
+    (1, 4) mesh of the CPU), one process each; both resolve on the host."""
+    env = _env(tmp_path_factory.mktemp("jaxcache"))
+    cmds = {}
+    for mode in ("raw", "stats", "verbose"):
+        tail = ("--tpu-shard-time", "4", "--ifile", str(synth_path), *MODES[mode])
+        cmds[("jax", mode)] = ("-m", "dump1090_tpu", "--tpu-backend", "cpu", *tail)
+        cmds[("port", mode)] = ("-m", "dump1090_tpu_torch", "--device", "cpu", *tail)
+    return _run_many(cmds, env)
+
+
+@pytest.mark.parametrize("mode", ["raw", "stats", "verbose"])
+def test_tpu_shard_time_equals_jax_cli(outputs, shard_outputs, mode):
+    """The port's --tpu-shard-time 4 is byte-equal to the JAX CLI's and to
+    the port's own unsharded decode of the same file."""
+    got = shard_outputs[("port", mode)]
+    assert got == shard_outputs[("jax", mode)] == outputs[("synth", "port", mode)]
+    assert len(got.split()) >= 9
+
+
+def test_tpu_shard_time_needs_as_many_cards(synth_path, monkeypatch, capsys):
+    """On cuda with fewer cards than --tpu-shard-time asks for, the CLI
+    stops with an error that names both counts, before any decode."""
+    import torch
+
+    import dump1090_tpu_torch.cli as tcli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    saved = {s: signal.getsignal(s) for s in (signal.SIGPIPE, signal.SIGWINCH)}
+    try:
+        rc = tcli.main(["--ifile", str(synth_path), "--raw", "--tpu-shard-time", "4"])
+    finally:
+        for s, h in saved.items():
+            signal.signal(s, h)
+    out, err = capsys.readouterr()
+    assert rc == 1 and out == ""
+    assert "over 4 shards needs 4 CUDA devices, but 1 is visible" in err

@@ -316,3 +316,35 @@ def test_live_paths_on_card_equal_cpu(cuda, tmp_path, monkeypatch):
             assert _cuda.launches["gather_windows"] >= 4 and _cuda.launches["resolve_words"] >= 4
         outs[(dev, method)] = ([dataclasses.astuple(m) for m in msgs], dataclasses.astuple(p.stats))
     assert len(set(map(repr, outs.values()))) == 1 and outs[("cpu", "run_source")][0]
+
+
+def test_sharded_decode_on_card_equals_cpu(cuda):
+    """decode_capture_sharded on a (2, 4) mesh of the one card and on a
+    (1, 1) mesh, both resolve strategies, from max_candidates 16: the
+    messages, counters and cache of the CPU run on a (2, 4) mesh, with K1
+    (every shard) and K2 (the segments) launched."""
+    from dump1090_tpu_torch import decode_capture_sharded
+    from dump1090_tpu_torch.models.decoder import DecoderStats, IcaoCache
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.parallel.sharding import Mesh
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    data, _ = planted_capture(4, 150, seed=1)
+
+    def run(mesh, dr):
+        st, cache = DecoderStats(), IcaoCache(clock=lambda: NOW)
+        msgs = decode_capture_sharded(data, mesh=mesh, stats=st, cache=cache,
+                                      max_candidates=16, device_resolve=dr)
+        return ([dataclasses.asdict(m) for m in msgs], dataclasses.astuple(st),
+                cache.addr.tolist(), cache.ts.tolist())
+
+    for dr in (True, False):
+        want = run(Mesh([["cpu"] * 4] * 2), dr)
+        assert len(want[0]) > 500
+        for dp, sp in ((2, 4), (1, 1)):
+            _cuda.reset_launches()
+            got = run(Mesh([[cuda] * sp] * dp), dr)
+            torch.cuda.synchronize()
+            assert got == want, (dp, sp, dr)
+            assert _cuda.launches["gather_windows"] > 0
+            assert (_cuda.launches["resolve_words"] > 0) == dr

@@ -2,11 +2,14 @@
 them, nor chip_smoke.py) imports jax or dump1090_tpu, it decodes (file
 decode, decode_captures, the message hub over run_device, the host-resolve
 path with its C++ runtime, its Python twin and the --debug dumps, the
-packed fronts and live buffers through run_source_device and run_source)
-with both made unimportable, and its entry points, the live CLI among
-them, refuse to fall back to the CPU when no card is present."""
+packed fronts and live buffers through run_source_device and run_source,
+the sharded decode's worker and --tpu-shard-time) with both made
+unimportable, and its entry points, the live CLI, the sharded decode and
+the worker among them, refuse to fall back to the CPU when no card is
+present."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -109,6 +112,42 @@ print("ok", p.stats.goodcrc)
     assert r.stdout.strip() == "ok 20"
 
 
+def test_sharded_paths_run_with_jax_unimportable(tmp_path):
+    """The multi-process worker (one process, a (2, 2) mesh of the CPU) and
+    the CLI's --tpu-shard-time run with jax and the JAX package made
+    unimportable, and neither enters sys.modules."""
+    path = tmp_path / "cap.bin"
+    code = f"""
+import contextlib, io, sys
+sys.modules["jax"] = None
+sys.modules["dump1090_tpu"] = None
+from dump1090_tpu_torch.utils.synth import planted_capture
+data, planted = planted_capture(2, 20, seed=9, flip_weights=(1.0,))
+open({str(path)!r}, "wb").write(data)
+from dump1090_tpu_torch.parallel import multihost_worker
+worker = io.StringIO()
+with contextlib.redirect_stdout(worker):
+    assert multihost_worker.main(["0", "1", "0", "--local-shards", "4", "--dp", "2",
+                                  "--device", "cpu"]) == 0
+assert "MULTIHOST PASS: 1 processes x 4 shards, mesh dp=2 sp=2" in worker.getvalue()
+from dump1090_tpu_torch import cli
+out = io.BytesIO()
+text = io.TextIOWrapper(out, encoding="utf-8", write_through=True)
+with contextlib.redirect_stdout(text):
+    assert cli.main(["--device", "cpu", "--tpu-shard-time", "4", "--ifile", {str(path)!r},
+                     "--raw"]) == 0
+want = b"".join(b"*" + c.hex().encode() + b";\\n" for _, _, c, _ in planted)
+assert out.getvalue() == want, (out.getvalue(), want)
+assert not any(m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
+               for m, v in sys.modules.items() if v is not None)
+print("ok", len(planted))
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "ok 40"
+
+
 def test_entry_points_refuse_cpu_fallback_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-card refusal cannot be shown")
@@ -135,6 +174,22 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
             cwd=REPO, capture_output=True,
         )
         assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
+    # the time-sharded decode: the card is asked for before the mesh
+    from dump1090_tpu_torch import decode_capture_sharded
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_capture_sharded(b"\x7f" * 1000, sp=2)
+    r = subprocess.run(
+        [sys.executable, "-m", "dump1090_tpu_torch", "--ifile",
+         str(REPO / "tests" / "golden" / "debug_p_input.bin"), "--raw", "--tpu-shard-time", "2"],
+        cwd=REPO, capture_output=True,
+    )
+    assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
+    r = subprocess.run(
+        [sys.executable, "-m", "dump1090_tpu_torch.parallel.multihost_worker", "0", "1", "0"],
+        cwd=REPO, capture_output=True,
+    )
+    assert r.returncode != 0 and b"no CUDA device" in r.stderr and r.stdout == b""
     # live input (no --ifile): the card is asked for before the radio
     r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--raw"], cwd=REPO,
                        capture_output=True)
