@@ -43,8 +43,8 @@ build_info: dict = {}
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (m_pad, pos, out, B, s_pad, mc, stream)
-    "gather_windows": [_vp, _vp, _vp, _i, _i, _i, _vp],
+    # (m, elem_bytes, pos, out, B, S, s_pad, lead, mc, stream)
+    "gather_windows": [_vp, _i, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out, counts,
     #  n_buffers, mc, now, stream)
     "resolve_words": [_vp] * 11 + [_i, _i, _i, _vp],
@@ -139,6 +139,8 @@ def check(err: int, name: str) -> None:
 
 
 def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on a tensor's device (a
+    torch.device or its index), read without building a Stream object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device if isinstance(device, int) else device.index)

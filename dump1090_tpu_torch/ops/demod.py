@@ -42,7 +42,7 @@ from ..constants import (
     PREAMBLE_SAMPLES,
     SHORT_MSG_BITS,
 )
-from .gather import WINDOW_PAD, gather_windows
+from .gather import WINDOW_PAD, gather_row_windows
 from .magnitude import magnitude_from_iq, magnitude_from_pairs
 
 WINDOW = FULL_LEN_SAMPLES + 1  # 241: one leading sample (m[j-1]) + preamble + frame
@@ -478,25 +478,14 @@ def candidate_passes_window(w: torch.Tensor, pos: torch.Tensor):
     return msg1, errors1, gate1, msg2, errors2, gate2
 
 
-def pad_magnitudes(m: torch.Tensor) -> torch.Tensor:
-    """int32 magnitudes (B, S) -> the window gather's uint16 (B, S_pad) rows.
-
-    The padded row keeps the JAX package's geometry (one-sample lead, 2048 +
-    256 samples of tail, rounded up to 1024), so the window kernel sees the
-    same (B, 134144) uint16 input at the file-decode width.  Magnitudes
-    (<= 65167) are narrowed through int16, whose cast keeps the low 16 bits,
-    and the buffer is reinterpreted as uint16."""
-    b, s = m.shape
-    s_pad = -(-(s + 1 + 2048 + WINDOW_PAD) // 1024) * 1024
-    m_pad = torch.zeros((b, s_pad), dtype=torch.int16, device=m.device)
-    m_pad[:, 1 : s + 1] = m
-    return m_pad.view(torch.uint16)
-
-
 def gather_candidate_windows(m: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Fetch (B, MC, 256) uint16 candidate windows from int32 magnitudes
-    (B, S); window index 0 holds m[pos-1] (zero at the stream head)."""
-    return gather_windows(pad_magnitudes(m), pos)
+    """Fetch (B, MC, 256) uint16 candidate windows from magnitudes (B, S),
+    int32 or uint16; window index 0 holds m[pos-1] (zero at the stream
+    head).  K1 reads m itself: of the JAX package's padded row (one-sample
+    lead, 2048 + 256 samples of tail, rounded up to 1024) only its length
+    is kept, as the clamp of a window's start."""
+    s_pad = -(-(m.shape[1] + 1 + 2048 + WINDOW_PAD) // 1024) * 1024
+    return gather_row_windows(m.contiguous(), pos, lead=1, s_pad=s_pad)
 
 
 def _candidate_passes(m: torch.Tensor, pos: torch.Tensor):

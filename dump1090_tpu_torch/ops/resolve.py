@@ -729,7 +729,7 @@ def _group_precompute(m, n, pos, fix_errors: bool, aggressive: bool, *,
     mc = max_candidates
     dev = m.device
 
-    w = gather_candidate_windows(m, pos)  # padding copy + K1
+    w = gather_candidate_windows(m, pos)  # K1, from the magnitudes
     _mark(marks, "gather")
     pos_f = pos.reshape(-1)
     msg1, errors1, gate1, msg2, errors2, gate2 = candidate_passes_window(

@@ -48,7 +48,7 @@ from ..ops.demod import (  # noqa: F401  (demod_batch: the batch-sharded form's 
     demod_batch,
     preamble_mask,
 )
-from ..ops.gather import WINDOW_PAD, gather_windows
+from ..ops.gather import WINDOW_PAD, gather_row_windows
 from ..ops.magnitude import magnitude_from_iq
 
 HALO = FULL_LEN_SAMPLES  # 240 samples from the right neighbour
@@ -237,13 +237,11 @@ def _shard_demod_body(m_ext: torch.Tensor, idx: int, scan_per_shard: int,
         mask = mask & (owned < scan_total)
     n = mask.sum(dim=1, dtype=torch.int32)
     pos = compact_positions(mask, max_candidates, t)
-    # K1 reads m_pad[pos : pos+256] and clamps a start past S_pad - 256, so
-    # the row is zero-padded to T + 256 (rounded to 1024): window index 0
-    # is m_ext[pos] = m[pos-1], the left halo at pos 0
+    # K1 reads m_ext[pos : pos+256] (zero past the row) with no lead:
+    # window index 0 is m_ext[pos] = m[pos-1], the left halo at pos 0.  The
+    # start is clamped as in a row zero-padded to T + 256 rounded to 1024
     s_pad = -(-(t + WINDOW_PAD) // 1024) * 1024
-    m_pad = torch.zeros((b, s_pad), dtype=torch.int16, device=dev)
-    m_pad[:, : m_ext.shape[1]] = m_ext
-    w = gather_windows(m_pad.view(torch.uint16), pos)
+    w = gather_row_windows(m_ext, pos, lead=0, s_pad=s_pad)
     gpos = pos + idx * t
     # the pos > 0 phase-correction rule (dump1090.c:1658-1663) applies to
     # the stream-global position: only the timeline's first sample has no

@@ -22,6 +22,9 @@ from dump1090_tpu.models.pipeline import PipelineConfig as JaxPipelineConfig
 from dump1090_tpu_torch.models.decoder import DecoderConfig
 from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
 from dump1090_tpu_torch.utils.synth import planted_capture
+# jax_native: the JAX package's pipelines resolve on the host with its
+# native runtime, a private copy
+from test_torch_native import jax_native  # noqa: F401  (a fixture)
 
 NOW = 1_700_000_000
 BLOCK = 262144
@@ -44,7 +47,7 @@ def _dicts(msgs):
 
 
 @pytest.fixture(scope="module")
-def jax_batched(captures):
+def jax_batched(captures, jax_native):
     mp = pytest.MonkeyPatch()
     mp.setattr(time, "time", lambda: float(NOW))
     try:
@@ -54,7 +57,7 @@ def jax_batched(captures):
 
 
 @pytest.mark.parametrize("mode", ["fix", "aggressive"])
-def test_run_device_matches_jax(captures, mode):
+def test_run_device_matches_jax(captures, mode, jax_native):
     """Groups of 2 x 2 buffers, candidate and emission shapes forced small
     so both grow by replay, in both packages."""
     fix, aggressive = True, mode == "aggressive"
@@ -79,7 +82,7 @@ def test_run_device_matches_jax(captures, mode):
         assert pt.stats.two_bits_fix > 0
 
 
-def test_decode_capture_matches_jax(captures, frozen):
+def test_decode_capture_matches_jax(captures, frozen, jax_native):
     cfg = DecoderConfig(fix_errors=True)
     got = tapi.decode_capture(captures[1], config=cfg, device="cpu", device_resolve=True)
     want = japi.decode_capture(captures[1], config=JaxDecoderConfig(),
@@ -118,7 +121,7 @@ def test_decode_captures_tiled_equal(captures, jax_batched, frozen, monkeypatch)
     assert max(s * b for s, b in calls) * 256 <= 3 * 256 and len(calls) > 3
 
 
-def test_decode_captures_candidate_growth(captures, frozen, monkeypatch):
+def test_decode_captures_candidate_growth(captures, frozen, monkeypatch, jax_native):
     """max_candidates 16 overflows and grows x4 in both packages."""
     monkeypatch.setattr(japi, "PipelineConfig",
                         functools.partial(JaxPipelineConfig, max_candidates=16))
@@ -169,7 +172,7 @@ def test_decode_captures_host_matches_jax_and_device(captures, jax_batched, froz
     assert [_dicts(s) for s in crc] == [[d for d in s if d["crcok"]] for s in jax_batched]
 
 
-def test_decode_capture_host_resolve_matches_jax(captures, frozen):
+def test_decode_capture_host_resolve_matches_jax(captures, frozen, jax_native):
     for cap in captures[:2]:
         got = tapi.decode_capture(cap, device_resolve=False, device="cpu")
         want = japi.decode_capture(cap, device_resolve=False)

@@ -27,6 +27,9 @@ from pathlib import Path
 import pytest
 
 from dump1090_tpu_torch.utils.synth import planted_capture
+# jax_native: the JAX CLI, in process and as `python *JAX_MAIN`, resolves
+# with its native runtime, a private copy
+from test_torch_native import JAX_MAIN, jax_native  # noqa: F401  (a fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 MODES = {
@@ -38,7 +41,8 @@ MODES = {
     "stats_onlyaddr": ("--stats", "--onlyaddr"),
     "onlyaddr_metric": ("--onlyaddr", "--metric"),
 }
-JAX_CLI = ("-m", "dump1090_tpu", "--tpu-backend", "cpu", "--tpu-device-resolve", "on")
+JAX_CLI = (*JAX_MAIN, "--tpu-backend", "cpu", "--tpu-device-resolve", "on")
+JAX_M = ("-m", "dump1090_tpu")  # for the runs that resolve nothing
 PORT_CLI = ("-m", "dump1090_tpu_torch", "--device", "cpu", "--tpu-device-resolve", "on")
 
 
@@ -74,7 +78,7 @@ def synth_path(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def outputs(tmp_path_factory, golden_dir, synth_path):
+def outputs(tmp_path_factory, golden_dir, synth_path, jax_native):
     env = _env(tmp_path_factory.mktemp("jaxcache"))
     cmds = {}
     for name, path in (("golden", golden_dir / "debug_p_input.bin"), ("synth", synth_path)):
@@ -107,7 +111,7 @@ def test_cli_stdout_equals_jax_cli(outputs, name, mode):
         assert got and all(len(a) == 6 for a in text.split())
 
 
-def test_state_save_and_load_equal_jax(tmp_path, synth_path):
+def test_state_save_and_load_equal_jax(tmp_path, synth_path, jax_native):
     """--tpu-state-save writes the JAX package's snapshot (the cache's
     timestamps aside, which are the wall clock of each run), and a --stats
     run that loads it prints the same accumulated counters."""
@@ -173,7 +177,7 @@ def test_bind_failure_equals_jax(tmp_path):
     try:
         port = str(busy.getsockname()[1])
         got = {}
-        for pkg, cli in (("jax", JAX_CLI[:2]), ("port", PORT_CLI[:2])):
+        for pkg, cli in (("jax", JAX_M), ("port", PORT_CLI[:2])):
             r = subprocess.run([sys.executable, *cli, "--net-only", "--net-sbs-port", port],
                                cwd=REPO, capture_output=True, timeout=120,
                                env=_env(tmp_path / "jaxcache"))
@@ -191,7 +195,7 @@ def test_snip_equals_jax(golden_dir):
     data = (golden_dir / "debug_p_input.bin").read_bytes()[:60000]
     got = subprocess.run([sys.executable, *PORT_CLI[:2], "--snip", "25"], input=data, cwd=REPO,
                          capture_output=True, timeout=120)
-    want = subprocess.run([sys.executable, *JAX_CLI[:2], "--snip", "25"], input=data, cwd=REPO,
+    want = subprocess.run([sys.executable, *JAX_M, "--snip", "25"], input=data, cwd=REPO,
                           capture_output=True, timeout=120, env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert got.returncode == want.returncode == 0
     assert got.stdout == want.stdout and 0 < len(got.stdout) <= len(data)
@@ -265,7 +269,7 @@ def _main_inprocess(main, argv) -> bytes:
     return buf.getvalue()
 
 
-def test_interactive_equals_jax(monkeypatch, tmp_path, golden_dir):
+def test_interactive_equals_jax(monkeypatch, tmp_path, golden_dir, jax_native):
     """--interactive (one buffer per batch, the 5 ms playback brake, the
     250 ms refresh and the final screen) on a frozen clock: the same bytes
     as the JAX CLI, and the screen lists the tracked aircraft."""
@@ -311,7 +315,8 @@ def test_sigwinch_rereads_rows_and_redraws(capsys):
 @pytest.mark.parametrize("mode", ["raw", "stats", "verbose"])
 @pytest.mark.parametrize("name", ["golden", "synth"])
 def test_host_resolve_cli_equals_device_resolve_and_jax(outputs, golden_dir, synth_path,
-                                                        monkeypatch, tmp_path, name, mode):
+                                                        monkeypatch, tmp_path, name, mode,
+                                                        jax_native):
     """--tpu-device-resolve off, in this process: the port's output equals
     its device-resolve output and the JAX CLI's (device resolve, and on the
     synthetic capture also the JAX CLI's own host path)."""
@@ -331,12 +336,12 @@ FRONTS = ["mask", "packed", "packed-mxu", "packed-plain", "packed-plain-mxu"]
 
 
 @pytest.fixture(scope="module")
-def jax_front_outputs(tmp_path_factory, synth_path):
+def jax_front_outputs(tmp_path_factory, synth_path, jax_native):
     """The JAX CLI's --raw under each --tpu-front, with its resolver on the
     host (16-buffer batches: the front runs in its demod_batch); one process
     each, since the JAX package reads the front when it first traces."""
     env = _env(tmp_path_factory.mktemp("jaxcache"))
-    return _run_many({f: ("-m", "dump1090_tpu", "--tpu-backend", "cpu", "--tpu-device-resolve",
+    return _run_many({f: (*JAX_MAIN, "--tpu-backend", "cpu", "--tpu-device-resolve",
                           "off", "--tpu-front", f, "--ifile", str(synth_path), "--raw")
                       for f in FRONTS}, env)
 
@@ -358,7 +363,7 @@ def test_tpu_front_equals_jax_cli(outputs, jax_front_outputs, synth_path, front,
 
 @pytest.mark.parametrize("preload", ["staged", "off"])
 def test_tpu_preload_equals_auto_and_jax_cli(outputs, synth_path, monkeypatch, tmp_path,
-                                             preload):
+                                             preload, jax_native):
     """--tpu-preload staged|off on the device path: the same bytes as the
     default (auto) and as the JAX CLI's --tpu-preload of the same mode."""
     import dump1090_tpu.cli as jcli
@@ -403,7 +408,7 @@ def test_tpu_backend_is_an_alias_of_device(outputs, synth_path, capsys):
 
 
 @pytest.fixture(scope="module")
-def shard_outputs(tmp_path_factory, synth_path):
+def shard_outputs(tmp_path_factory, synth_path, jax_native):
     """--tpu-shard-time 4 on the synthetic capture: the JAX CLI on its 8
     virtual CPU devices (a (2, 4) mesh) and the port with --device cpu (a
     (1, 4) mesh of the CPU), one process each; both resolve on the host."""
@@ -411,7 +416,7 @@ def shard_outputs(tmp_path_factory, synth_path):
     cmds = {}
     for mode in ("raw", "stats", "verbose"):
         tail = ("--tpu-shard-time", "4", "--ifile", str(synth_path), *MODES[mode])
-        cmds[("jax", mode)] = ("-m", "dump1090_tpu", "--tpu-backend", "cpu", *tail)
+        cmds[("jax", mode)] = (*JAX_MAIN, "--tpu-backend", "cpu", *tail)
         cmds[("port", mode)] = ("-m", "dump1090_tpu_torch", "--device", "cpu", *tail)
     return _run_many(cmds, env)
 

@@ -42,6 +42,36 @@ def test_gather_kernel_equals_plain(cuda, mc):
     assert torch.equal(got.view(torch.int16), gather_windows_plain(m_pad, pos).view(torch.int16))
 
 
+@pytest.mark.parametrize("lead,s,s_pad", [(1, 2000, 5120), (0, 1 + 1024 + 240, 2048)])
+@pytest.mark.parametrize("mc", [16, 24, 256])
+def test_fused_gather_kernel_equals_plain_and_two_step(cuda, mc, lead, s, s_pad):
+    """K1 on int32 magnitudes (the file path's geometry, lead 1, and a
+    shard's, lead 0) bit-equal to its plain version and to the two-step
+    path (zero-padded uint16 rows, then K1 on them), with edge positions
+    (0, negative, at and past s_pad - 256) in every row and values above
+    32,767."""
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.gather import (
+        gather_row_windows, gather_row_windows_plain, gather_windows)
+
+    rng = np.random.default_rng(mc + lead)
+    b = 4
+    m = rng.integers(0, 65168, (b, s), dtype=np.int32)
+    m[:, :3] = [32767, 32768, 65167]
+    pos = np.sort(rng.integers(0, s - 240, (b, mc)), axis=1)
+    pos[:, :8] = [0, 1, -1, -500, s - 240, s_pad - 256, s_pad - 100, s_pad + 9000]
+    m, pos = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (m, pos))
+    before = _cuda.launches["gather_windows"]
+    got = gather_row_windows(m, pos, lead=lead, s_pad=s_pad)
+    torch.cuda.synchronize()
+    assert _cuda.launches["gather_windows"] == before + 1
+    want = gather_row_windows_plain(m, pos, lead=lead, s_pad=s_pad).view(torch.int16)
+    m_pad = torch.zeros((b, s_pad), dtype=torch.int16, device=cuda)
+    m_pad[:, lead:lead + s] = m
+    assert torch.equal(got.view(torch.int16), want)
+    assert torch.equal(gather_windows(m_pad.view(torch.uint16), pos).view(torch.int16), want)
+
+
 def _walk_inputs(mc):
     """The walk's adversarial inputs at width mc, as numpy int32 (pf, w1,
     w2, nbuf, cache_addr, cache_ts): random words, and the forced-cut
@@ -211,26 +241,27 @@ def test_host_path_on_card_equals_cpu_with_k1_checked_at_its_shapes(cuda, monkey
     """The host-resolve path (DemodPipeline.run, native runtime) on one
     group of 16 dense buffers, in 16-buffer batches and one buffer at a
     time, on the card against the CPU run.  Every K1 launch on the card is
-    held against gather_windows_plain: at (16, 256), at (1, 256), and at
+    held against gather_row_windows_plain: at (16, 256), at (1, 256), and at
     (1, 1024) after the forced retry of a buffer with more than 256
     preambles."""
     from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.ops import demod as td
-    from dump1090_tpu_torch.ops.gather import gather_windows_plain
+    from dump1090_tpu_torch.ops.gather import gather_row_windows_plain
     from dump1090_tpu_torch.utils.synth import planted_capture
 
     shapes = []
-    real = td.gather_windows
+    real = td.gather_row_windows
 
-    def checked(m_pad, pos):
-        out = real(m_pad, pos)
+    def checked(m, pos, **kw):
+        out = real(m, pos, **kw)
         if out.is_cuda:
             shapes.append(tuple(pos.shape))
-            assert torch.equal(out.view(torch.int16), gather_windows_plain(m_pad, pos).view(torch.int16))
+            want = gather_row_windows_plain(m, pos, **kw)
+            assert torch.equal(out.view(torch.int16), want.view(torch.int16))
         return out
 
-    monkeypatch.setattr(td, "gather_windows", checked)
+    monkeypatch.setattr(td, "gather_row_windows", checked)
     dense, _ = planted_capture(14, 150, seed=31)
     denser, _ = planted_capture(2, 240, seed=32)  # more than 256 preambles a buffer
     data = dense + denser

@@ -5,13 +5,26 @@ through each, every ModesMessage field, the 8 counters and the ICAO cache
 equal; the batch call against the per-row one, with its overflow found
 before the cache is touched; the CRC hooks and decode_one against the
 Python decode; the build keyed by a hash and safe to run from several
-threads at once; and native=True|None|False.  Needs g++ (skips without)."""
+threads at once; and native=True|None|False.  Needs g++ (skips without).
 
+It also holds the JAX package's native runtime for every port test that
+compares against it: `jax_native` builds a private copy of that runtime
+and points the JAX package at it, so that no comparison depends on the
+library the JAX package builds in place at first use, which parallel test
+workers can race to write (a worker that opens it half-written falls back
+to the Python resolver for the rest of its life)."""
+
+import contextlib
 import ctypes
 import dataclasses
 import io
+import os
 import shutil
+import subprocess
+import sys
+import textwrap
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,6 +42,70 @@ from dump1090_tpu_torch.utils.synth import traffic_capture, traffic_frames
 NOW = 1_700_000_000
 SCAN = BUF_SAMPLES - FULL_LEN_SAMPLES
 MODES = {"fix": (True, False), "nofix": (False, False), "aggressive": (True, True)}
+REPO = Path(__file__).resolve().parent.parent
+
+# `python *JAX_MAIN <args>` is `python -m dump1090_tpu <args>` with the JAX
+# package's native runtime loaded from the private copy that `jax_native`
+# names in the environment; it exits 1 when that runtime does not load
+JAX_NATIVE_ENV = "DUMP1090_TEST_JAX_NATIVE_SO"
+JAX_MAIN = ("-c", textwrap.dedent(f"""\
+    import os, pathlib, runpy, sys
+    import dump1090_tpu.native as native
+    native._SO = pathlib.Path(os.environ["{JAX_NATIVE_ENV}"])
+    if native.load() is None:
+        sys.exit("the JAX package's native runtime did not load from " + str(native._SO))
+    runpy.run_module("dump1090_tpu", run_name="__main__", alter_sys=True)
+    """))
+
+
+def build_jax_native(directory: Path) -> Path:
+    """The JAX package's native runtime compiled from its source, unchanged,
+    with the package's own g++ flags, into `directory`.  g++ writes a
+    temporary file that os.replace puts in place whole."""
+    import dump1090_tpu.native as jn
+
+    so = directory / "modes_native.so"
+    tmp = directory / f".modes_native.{os.getpid()}.{threading.get_ident()}.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", str(jn._SRC), "-o", str(tmp)],
+                   check=True, capture_output=True)
+    os.replace(tmp, so)
+    return so
+
+
+@contextlib.contextmanager
+def jax_native_runtime(so: Path):
+    """While open, the JAX package loads its native runtime from `so`, from
+    a fresh state (no library loaded, no failure recorded), and JAX_MAIN
+    subprocesses find `so` in the environment; the module's state and the
+    environment are restored on exit.  Fails when the library does not
+    load: the JAX side would otherwise fall back to its Python resolver
+    without a word."""
+    import dump1090_tpu.native as jn
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jn, "_SO", so)
+        mp.setattr(jn, "_lib", None)
+        mp.setattr(jn, "_lib_failed", False)
+        mp.delenv("DUMP1090_TPU_NO_NATIVE", raising=False)
+        mp.setenv(JAX_NATIVE_ENV, str(so))
+        assert jn.load() is not None, f"the JAX package's native runtime did not load from {so}"
+        yield jn
+
+
+_private_so: list = []  # the private copy, built once a test process
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native runtime, a private copy, for the tests and
+    fixtures that hold the port against it (import this fixture into their
+    module and request it there)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the JAX package's native runtime cannot be built")
+    if not _private_so:
+        _private_so.append(build_jax_native(tmp_path_factory.mktemp("jax_native")))
+    with jax_native_runtime(_private_so[0]) as jn:
+        yield jn
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +139,7 @@ def _dicts(msgs):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_native_matches_python_and_jax_native(resolver, host, mode):
+def test_native_matches_python_and_jax_native(resolver, host, jax_native, mode):
     from dump1090_tpu.models import decoder as jdec
     from dump1090_tpu.native import NativeResolver as JaxNativeResolver
 
@@ -202,3 +279,49 @@ def test_native_true_none_false(tmp_path, monkeypatch, capsys):
     assert "native runtime unavailable" in capsys.readouterr().err
     assert DemodPipeline(device="cpu", native=False)._native is None
     assert capsys.readouterr().err == "" and not (tmp_path / "_build").exists()
+
+
+# what a parallel run's lost build race left behind: the four comparisons
+# with the JAX package's native runtime that then failed
+RACE_TESTS = [
+    *(f"tests/test_torch_native.py::test_native_matches_python_and_jax_native[{m}]"
+      for m in MODES),
+    "tests/test_torch_sharded_decode.py::test_decode_capture_sharded_emit_progress_lock[False]",
+]
+
+
+def test_comparisons_stand_after_a_lost_build_race(tmp_path):
+    """One process in the state a lost build race leaves: a 10-byte
+    modes_native.so in the JAX package, newer than its source, fails to
+    load, and the JAX module records the failure for the rest of the
+    process.  The four comparisons with the JAX native runtime that failed
+    so in a parallel run pass in that process.  The process imports a copy
+    of the JAX package, so that the library other test workers load is
+    never touched."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the JAX package's native runtime cannot be built")
+    import dump1090_tpu
+
+    pkg = Path(dump1090_tpu.__file__).parent
+    shutil.copytree(pkg, tmp_path / pkg.name, ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    code = textwrap.dedent(f"""\
+        import os, pathlib, sys
+        sys.path.insert(0, {str(tmp_path)!r})
+        import pytest
+        import dump1090_tpu.native as native
+        assert pathlib.Path(native.__file__).is_relative_to({str(tmp_path)!r})
+        native._SO.write_bytes(b"0123456789")
+        os.utime(native._SO)
+        assert native.load() is None and native._lib_failed
+        sys.exit(pytest.main(["-q", "-p", "no:cacheprovider", "-p", "no:randomly",
+                              *{RACE_TESTS!r}]))
+        """)
+    # one compute thread (torch's and XLA's), so the child loads the machine
+    # beside the other test workers no more than a worker does
+    xla = os.environ.get("XLA_FLAGS", "") + " --xla_cpu_multi_thread_eigen=false"
+    env = dict(os.environ, OMP_NUM_THREADS="1", XLA_FLAGS=xla.strip())
+    env.pop("DUMP1090_TPU_NO_NATIVE", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0 and f"{len(RACE_TESTS)} passed" in r.stdout, \
+        (r.stdout[-3000:], r.stderr[-2000:])

@@ -17,6 +17,9 @@ from dump1090_tpu_torch.models.decoder import DecoderConfig
 from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
 from dump1090_tpu_torch.models.state import state_from_numpy, state_to_numpy
 from dump1090_tpu_torch.utils.synth import planted_capture
+# jax_native: the JAX package's pipelines resolve on the host with its
+# native runtime, a private copy
+from test_torch_native import jax_native  # noqa: F401  (a fixture)
 
 NOW = 1_700_000_000
 MODES = {"fix": (True, False), "nofix": (False, False), "aggressive": (True, True)}
@@ -53,7 +56,7 @@ def _port_decode(data, fix, aggressive, pipeline=None, **kw):
 
 
 @pytest.fixture(scope="module")
-def jax_results(capture):
+def jax_results(capture, jax_native):
     out = {}
     for mode, (fix, aggressive) in MODES.items():
         p, raw = _jax_decode(capture, fix, aggressive)
@@ -79,7 +82,7 @@ def test_stream_raw_device_matches_jax(capture, jax_results, mode, depth):
         assert p.stats.two_bits_fix > 0
 
 
-def test_preload_and_streaming_ingest_identical(capture, jax_results, tmp_path):
+def test_preload_and_streaming_ingest_identical(capture, jax_results, tmp_path, jax_native):
     """A regular file takes the preload strategy ("auto": every group
     uploaded first; "staged": one group, then the rest on a reader thread),
     a BytesIO or preload "off" the streaming reader thread; all give the
@@ -100,7 +103,7 @@ def test_preload_and_streaming_ingest_identical(capture, jax_results, tmp_path):
         DemodPipeline(PipelineConfig(preload="eager"), device="cpu")
 
 
-def test_state_carried_from_jax_into_port(capture):
+def test_state_carried_from_jax_into_port(capture, jax_native):
     """Decode half A in JAX, carry its ICAO cache and counters into the port
     with state_from_numpy, decode half B in the port: equal to JAX decoding
     A then B with one pipeline."""
@@ -361,18 +364,20 @@ def _host_run(pkg_pipeline, pkg_config, dec_config, data, fix, aggressive, nativ
 
 @pytest.mark.parametrize("mode,native", [("fix", True), ("nofix", True), ("aggressive", True),
                                          ("fix", False)])
-def test_host_path_matches_jax_and_run_device(traffic, mode, native):
+def test_host_path_matches_jax_and_run_device(traffic, mode, native, request):
     """DemodPipeline.run (2-buffer batches, candidate overflow forced from
     max_candidates=16) against the JAX package's run and against the
     port's own run_device on the same input: every message field, the 8
     counters and the ICAO cache."""
+    if native:
+        request.getfixturevalue("jax_native")
     fix, aggressive = MODES[mode]
     kw = dict(batch_buffers=2, max_candidates=16)
     p, got = _host_run(DemodPipeline, PipelineConfig, DecoderConfig, traffic, fix, aggressive,
                        native, **kw)
     pj, want = _host_run(JaxPipeline, JaxPipelineConfig, JaxDecoderConfig, traffic, fix,
                          aggressive, native, **kw)
-    assert (p._native is not None) == native
+    assert (p._native is not None) == (pj._native is not None) == native
     assert got == want and _counters(p.stats) == _counters(pj.stats)
     np.testing.assert_array_equal(p.cache.addr, pj.cache.addr)
     np.testing.assert_array_equal(p.cache.ts, pj.cache.ts)

@@ -27,6 +27,7 @@ import pytest
 
 from dump1090_tpu_torch.constants import DATA_LEN_BYTES
 from dump1090_tpu_torch.utils.synth import planted_capture
+from test_torch_native import JAX_MAIN, jax_native  # noqa: F401  (a fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 STUB_SRC = REPO / "tests" / "stub_rtlsdr.c"
@@ -115,7 +116,8 @@ def test_short_transfer_keeps_stale_tail(stub_lib, monkeypatch, tmp_path):
     assert np.array_equal(bufs[1][CARRY_BYTES + 1000 :], bufs[0][CARRY_BYTES + 1000 :])
 
 
-def test_run_source_device_equals_run_source_and_jax(stub_lib, monkeypatch, tmp_path, air):
+def test_run_source_device_equals_run_source_and_jax(stub_lib, jax_native, monkeypatch, tmp_path,
+                                                    air):
     """The stub's two buffers through the port's run_source_device (the
     device path: _device_batches with no stream) and run_source (host
     resolve), and through the JAX package's run_source_device: the same
@@ -153,14 +155,14 @@ def test_run_source_device_equals_run_source_and_jax(stub_lib, monkeypatch, tmp_
 
 
 def _clis(runs, stub_lib, stub_data, tmp_path):
-    """`python -m <pkg_args>` for each of `runs`, all at once, over the stub
-    radio; their CompletedProcess results in order."""
+    """`python <args>` for each of `runs`, all at once, over the stub radio;
+    their CompletedProcess results in order."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", DUMP1090_TPU_LIBRTLSDR=str(stub_lib),
                RTLSDR_STUB_DATA=str(stub_data),
                JAX_COMPILATION_CACHE_DIR=str(tmp_path / "jaxcache"))
     env.pop("PYTHONPATH", None)
     env.pop("RTLSDR_STUB_DELAY_US", None)
-    procs = [subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, env=env, cwd=REPO, text=True)
              for args in runs]
     out = []
@@ -170,7 +172,7 @@ def _clis(runs, stub_lib, stub_data, tmp_path):
     return out
 
 
-def test_cli_live_raw_equals_jax_cli(stub_lib, tmp_path, air):
+def test_cli_live_raw_equals_jax_cli(stub_lib, jax_native, tmp_path, air):
     """`--device-index 0 --gain 40 --ppm 1 --enable-agc --raw` over one
     transfer of the stub: the port's stdout (with --device cpu) is the JAX
     CLI's, byte for byte, and the file decode's of the same bytes; the init
@@ -180,8 +182,8 @@ def test_cli_live_raw_equals_jax_cli(stub_lib, tmp_path, air):
     stub_data = tmp_path / "capture.bin"
     stub_data.write_bytes(air[:DATA_LEN_BYTES])
     flags = ["--device-index", "0", "--gain", "40", "--ppm", "1", "--enable-agc", "--raw"]
-    got, want = _clis([["dump1090_tpu_torch", *flags, "--device", "cpu"],
-                       ["dump1090_tpu", *flags, "--tpu-backend", "cpu"]], stub_lib, stub_data,
+    got, want = _clis([["-m", "dump1090_tpu_torch", *flags, "--device", "cpu"],
+                       [*JAX_MAIN, *flags, "--tpu-backend", "cpu"]], stub_lib, stub_data,
                       tmp_path)
     assert got.returncode == want.returncode == 0, (got.stderr, want.stderr)
     assert got.stdout == want.stdout
@@ -202,8 +204,9 @@ def test_cli_live_interactive(stub_lib, tmp_path, air):
     stub_data.write_bytes(air[:DATA_LEN_BYTES])
     addrs = {f"{m.aa1:02x}{m.aa2:02x}{m.aa3:02x}"
              for m in decode_capture(air[:DATA_LEN_BYTES], crcok_only=True, device="cpu")}
-    runs = [["dump1090_tpu_torch", "--device-index", "0", "--interactive", "--interactive-rows",
-             "10", "--device", "cpu", "--tpu-device-resolve", resolve] for resolve in ("on", "off")]
+    runs = [["-m", "dump1090_tpu_torch", "--device-index", "0", "--interactive",
+             "--interactive-rows", "10", "--device", "cpu", "--tpu-device-resolve", resolve]
+            for resolve in ("on", "off")]
     for r in _clis(runs, stub_lib, stub_data, tmp_path):
         assert r.returncode == 0, r.stderr
         assert "Hex" in r.stdout and "Flight" in r.stdout  # the table header

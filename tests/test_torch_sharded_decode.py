@@ -19,6 +19,8 @@ from dump1090_tpu_torch.constants import BLOCK_SAMPLES
 from dump1090_tpu_torch.models.decoder import DecoderConfig, DecoderStats
 from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
 from dump1090_tpu_torch.utils.synth import planted_capture
+# jax_native: JAX's side resolves with its native runtime, a private copy
+from test_torch_native import jax_native  # noqa: F401  (a fixture)
 from test_torch_sharding import MODES, NOW, _cpu_mesh, _jax_mesh, _prefilled_caches
 
 
@@ -36,7 +38,8 @@ def _dicts(msgs) -> list:
 @pytest.mark.parametrize("mc", [16, 2500])
 @pytest.mark.parametrize("device_resolve", [True, False])
 @pytest.mark.parametrize("mode", list(MODES))
-def test_decode_capture_sharded_equal_jax_and_unsharded(air, mc, device_resolve, mode):
+def test_decode_capture_sharded_equal_jax_and_unsharded(air, mc, device_resolve, mode,
+                                                         jax_native):
     """A (2, 4) mesh over three dense buffers: every message field, the 8
     counters and the final cache equal JAX's decode_capture_sharded (from
     the same pre-filled cache), and the port's unsharded decode
@@ -94,7 +97,7 @@ def test_decode_capture_sharded_grows_both_shapes(air, monkeypatch):
 
 
 @pytest.mark.parametrize("device_resolve", [True, False])
-def test_decode_capture_sharded_emit_progress_lock(air, device_resolve):
+def test_decode_capture_sharded_emit_progress_lock(air, device_resolve, jax_native):
     """emit sees every message in stream order, progress counts each
     group's new samples, every resolve step runs under the lock, and a
     decode cut by its emit callback leaves the cache of the groups before
