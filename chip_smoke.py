@@ -56,7 +56,18 @@ capture, checking what comes out:
     and the CPU, a (32, 2) mesh that grows both shapes, --tpu-shard-time 1
     against --raw, the multi-process worker at world size 1, K1 and K2
     against their plain versions at this path's shapes, and the (1, 4) and
-    (2, 4) decodes of 64 dense buffers timed (counted).
+    (2, 4) decodes of 64 dense buffers timed (counted);
+  * the differential fuzz (`fuzz`: tools/fuzz_diff.py's random streams of
+    six recipes, noise to frames across buffer boundaries, in six modes:
+    the device resolver in three decoder modes, the host resolve, the
+    sharded decode on a (1, 4) mesh of the card and the verbose CLI), every
+    mode's output on the card equal to the CPU's;
+  * the wall-clock soaks (`soak`: tools/soak_device.py's raw-stream and
+    messages planes side by side for 2.5 minutes of a live clock at the
+    radio's 4 MB/s, dense air, a fleet and 67 s of quiet air a period, so
+    the ICAO-cache and aircraft TTLs are crossed and the pipeline shrinks
+    and regrows its shapes), each equal byte for byte to its CPU replay
+    under the recorded clocks.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -1784,6 +1795,238 @@ def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> 
     return launches, kernels
 
 
+FUZZ_MODES = ("device", "device-nofix", "device-aggressive", "raw", "sharded-device",
+              "device-verbose")
+
+
+@contextlib.contextmanager
+def kernel_inputs(pick):
+    """Record K1's and K2's inputs on the pipeline's dispatch path
+    (ops.demod.gather_row_windows, ops.resolve.resolve_words) while the
+    block runs.  pick(kind, mc) names the record a call belongs to (kind
+    "k1" or "k2", mc its candidate slots a buffer), or None; a name keeps
+    the tensors (cloned before the call) of the last call given it.
+    Yields {(name, kind): (args, kwargs)}; thread-safe, for the soak's
+    planes."""
+    import threading
+
+    from dump1090_tpu_torch.ops import demod, resolve
+
+    rec, lock = {}, threading.Lock()
+    real = {"k1": demod.gather_row_windows, "k2": resolve.resolve_words}
+
+    def wrap(kind, mc_of):
+        def call(*a, **k):
+            name = pick(kind, mc_of(a))
+            if name is not None:
+                kept = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+                with lock:
+                    rec[(name, kind)] = (kept, dict(k))
+            return real[kind](*a, **k)
+        return call
+
+    demod.gather_row_windows = wrap("k1", lambda a: a[1].shape[1])
+    resolve.resolve_words = wrap("k2", lambda a: a[8])
+    try:
+        yield rec
+    finally:
+        demod.gather_row_windows, resolve.resolve_words = real["k1"], real["k2"]
+
+
+def check_kernel_inputs(rec: dict, where: str) -> dict:
+    """K1 (k1_check) and K2 (against resolve_words_plain) on each recorded
+    call of kernel_inputs; raises on any difference.  Returns per name the
+    K1 shape, the K2 slots, `now`, the cache's valid and aged (older than
+    the ICAO TTL) entries, each error and time."""
+    from dump1090_tpu_torch.constants import ICAO_CACHE_TTL
+    from dump1090_tpu_torch.ops import resolve
+
+    out = {}
+    for name in sorted({n for n, _ in rec}):
+        r = out[name] = {}
+        if (name, "k1") in rec:
+            (m, pos), kw = rec[(name, "k1")]
+            k = k1_check(m, pos, kw["lead"], kw["s_pad"], 20)
+            r["k1"] = {x: k[x] for x in ("shape", "max_abs_err", "ms", "plain_ms")}
+        if (name, "k2") in rec:
+            walk, _ = rec[(name, "k2")]
+            got = resolve.resolve_words(*walk)
+            err = max(max_abs_err(g, w) for g, w in zip(got, resolve.resolve_words_plain(*walk)))
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"{where}: K2 differs from its plain version at {name}: {err}")
+            ca, ct, now, mc = walk[5], walk[6], walk[7], walk[8]
+            valid = ca != 0
+            r["k2"] = {"slots": walk[0].numel(), "mc": mc, "now": now,
+                       "cache_valid": int(valid.sum()),
+                       "cache_aged": int((valid & (now - ct.to(torch.int64) > ICAO_CACHE_TTL)).sum()),
+                       "max_abs_err": err,
+                       "ms": cuda_ms(lambda: resolve.resolve_words(*walk), 5)}
+    return out
+
+
+def fuzz_phase(seed: int, dev: torch.device, n: int = 24) -> dict:
+    """The differential fuzz (dump1090_tpu_torch.tools.fuzz_diff) on the
+    card, counted: `n` random streams of 1-3 buffers from `seed`, the first
+    six one of each recipe (noise, garbage, planted frames twice, clustered
+    frames, frames across a buffer boundary), each in FUZZ_MODES: the file
+    decode with the device resolver in three decoder modes, the host
+    resolve (`raw`, K1 only), the sharded decode on a (1, 4) mesh of the
+    card and the CLI's verbose display with the device resolver (cli.main
+    in this process).  Every mode's lines on the card must equal the same
+    mode on the CPU.  K1's and K2's inputs of the last dispatch of each
+    recipe stream's `device` decode (1-3 buffers a batch) are recorded and
+    each kernel is held against its plain version on them.  Returns the
+    phase's launches."""
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.tools import fuzz_diff
+
+    per_mode = {m: collections.Counter() for m in FUZZ_MODES}
+    card_s = collections.Counter()
+    on_card = {"mode": None, "stream": -1}
+
+    @contextlib.contextmanager
+    def counted(mode):
+        torch.cuda.synchronize()
+        before = dict(_cuda.launches)
+        on_card["mode"] = mode
+        if mode == FUZZ_MODES[0]:  # each stream's first mode
+            on_card["stream"] += 1
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            on_card["mode"] = None
+        torch.cuda.synchronize()
+        card_s[mode] += time.perf_counter() - t0
+        per_mode[mode].update({k: _cuda.launches[k] - before[k] for k in before})
+
+    def pick(kind, mc):
+        k = on_card["stream"]
+        return f"recipe{k}" if on_card["mode"] == "device" and k < fuzz_diff.RECIPES else None
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with kernel_inputs(pick) as rec:
+        res = fuzz_diff.fuzz(n, seed, FUZZ_MODES, dev, in_process=True, around=counted,
+                             log=lambda *_: None)
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    if res["fails"]:
+        raise AssertionError(f"fuzz: the card differs from the CPU in (stream, mode) "
+                             f"{res['fails']}")
+    if sorted(res["streams_per_recipe"]) != list(range(fuzz_diff.RECIPES)):
+        raise AssertionError(f"fuzz: a recipe was not drawn: {res['streams_per_recipe']}")
+    for mode in FUZZ_MODES:
+        used = ("gather_windows",) if mode == "raw" else ("gather_windows", "resolve_words")
+        if any(per_mode[mode][k] <= 0 for k in used):
+            raise AssertionError(f"fuzz: {mode} did not launch {used}: {dict(per_mode[mode])}")
+    if len(rec) != 2 * fuzz_diff.RECIPES:
+        raise AssertionError(f"fuzz: K1's and K2's inputs not recorded for every recipe: "
+                             f"{sorted(rec)}")
+    kernels = check_kernel_inputs(rec, "fuzz")
+    emit({"phase": "fuzz", "seed": seed, "streams": n, "modes": list(FUZZ_MODES),
+          "equal": True, "streams_per_recipe": res["streams_per_recipe"],
+          "lines_compared": res["lines"],
+          "launches_per_mode": {m: {k: per_mode[m][k] for k in ("gather_windows",
+                                                                 "resolve_words")}
+                                for m in FUZZ_MODES},
+          "card_s_per_mode": dict(card_s), "phase_s": wall, "launches": launches,
+          "kernels_at_recipes": kernels})
+    return launches
+
+
+def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
+    """The wall-clock soaks (dump1090_tpu_torch.tools.soak_device) on the
+    card, counted: the raw-stream plane (stream_raw_device) and the messages
+    plane (run_device -> hub -> tracker, SBS, data.json) side by side, one
+    thread and one CUDA stream each, 16-buffer batches, 2 a group, paced at
+    the radio's 4 MB/s over `window_min` minutes of a live clock.  Each
+    period: the 16 dense blocks of `seed`, an 8-aircraft fleet over 6 steps
+    and 1,024 quiet buffers (67 s).  Then each plane's CPU replay under the
+    recorded clocks.  Each plane must equal its replay byte for byte, span
+    at least 120 s of clock, shrink max_candidates and grow it back; the
+    messages plane must evict.  K1's and K2's inputs are recorded in each
+    plane at its first dispatch with max_candidates shrunk to 64, its last
+    one there (the dense air that overflows, over a cache aged past the
+    TTL) and its first after the regrowth (the replay, aged cache), under
+    the live `now`, and each kernel is held against its plain version on
+    them.  Device time: CUDA events around each dispatch (marks=), summed
+    over both planes.  Returns the launches of the card passes."""
+    import threading
+
+    from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.tools import soak_device
+
+    args = soak_device.parser().parse_args(
+        ["--wall-minutes", str(window_min), "--wall-messages", str(window_min),
+         "--batch", "16", "--groups", "2", "--seed", str(seed)])
+    specs = {plane: soak_device.make_spec(args, plane) for plane in soak_device.PLANES}
+    spans, real_dispatch = [], pl.demod_resolve_group
+
+    def dispatch(*a, **k):
+        marks = []
+        spans.append(marks)
+        return real_dispatch(*a, marks=marks, **k)
+
+    stage = {}  # (plane, kind) -> "shrunk" from the first dispatch at 64, then "regrown"
+
+    def pick(kind, mc):
+        plane = threading.current_thread().name.removeprefix("soak-")
+        at = stage.get((plane, kind))
+        if mc == 64 and at is None:
+            stage[(plane, kind)] = "shrunk"
+            return f"{plane}/shrunk"
+        if mc == 64 and at == "shrunk":
+            return f"{plane}/overflow"  # the last call at 64 is kept
+        if mc > 64 and at == "shrunk":
+            stage[(plane, kind)] = "regrown"
+            return f"{plane}/regrown"
+        return None
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    pl.demod_resolve_group = dispatch
+    try:
+        with contextlib.redirect_stdout(sys.stderr), kernel_inputs(pick) as rec:
+            report = soak_device.soak(specs, dev)  # its PASS/FAIL lines go to stderr
+    finally:
+        pl.demod_resolve_group = real_dispatch
+    launches = dict(_cuda.launches)  # the oracles run in CPU subprocesses
+    wall = time.perf_counter() - t0
+    device_s = sum(m[0][1].elapsed_time(m[-1][1]) for m in spans) / 1e3
+    for plane, r in report.items():
+        f = r["facts"]
+        if not r["ok"]:
+            raise AssertionError(f"soak {plane}: the card differs from its replay: {r['faults']}")
+        if f["clock_span_s"] < 120 or f["shrinks"] < 1 or f["regrowths"] < 1:
+            raise AssertionError(f"soak {plane}: too short a clock, or no shrink and regrowth: {f}")
+        if plane == "messages" and f["evicted"] < 1:
+            raise AssertionError(f"soak {plane}: no aircraft was evicted: {f}")
+    if any(launches[k] <= 0 for k in ("gather_windows", "resolve_words")):
+        raise AssertionError(f"soak: a kernel did not launch: {launches}")
+    want = {(f"{p}/{at}", kind) for p in report for at in ("shrunk", "regrown")
+            for kind in ("k1", "k2")}
+    if not want <= set(rec):
+        raise AssertionError(f"soak: K1's and K2's inputs not recorded at {sorted(want - set(rec))}")
+    kernels = check_kernel_inputs(rec, "soak")
+    for plane in report:
+        if kernels[f"{plane}/regrown"]["k2"]["cache_aged"] < 1:
+            raise AssertionError(f"soak {plane}: K2 met no aged cache entry at the regrowth: "
+                                 f"{kernels[f'{plane}/regrown']}")
+    emit({"phase": "soak", "window_min": window_min, "rate_mb_s": args.rate_mb_s,
+          "batch": args.batch, "groups": args.groups, "quiet_bufs": args.quiet_bufs,
+          "equal": True, "planes": {p: {"facts": r["facts"], "regime_shifts": r["regime_shifts"]}
+                                    for p, r in report.items()},
+          "oracle_s": next(iter(report.values()))["oracle_s"], "phase_s": wall,
+          "dispatch_device_s": device_s, "device_share": device_s / (window_min * 60),
+          "launches": launches, "kernels_at_shapes": kernels})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1996,6 +2239,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         sharded_launches, _ = sharded_phase(blocks, planted, dev, Path(tmp))
 
+    # ---- the differential fuzz and the wall-clock soaks -----------------------
+    fuzz_launches = fuzz_phase(args.seed, dev)
+    soak_launches = soak_phase(args.seed, dev)
+
     gather_stage_kernels_phase(args.seed)
 
     paths = {
@@ -2017,6 +2264,8 @@ def main() -> int:
         "live_cli": (live_cli_launches, ("gather_windows", "resolve_words")),
         "profile": (profile_launches, ("gather_windows", "resolve_words")),
         "sharded": (sharded_launches, ("gather_windows", "resolve_words")),
+        "fuzz": (fuzz_launches, ("gather_windows", "resolve_words")),
+        "soak": (soak_launches, ("gather_windows", "resolve_words")),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():
@@ -2040,8 +2289,12 @@ def main() -> int:
     # and on the time-sharded decode (K1 in every shard, K2 over the segments)
     for r in (k1, k2, k3):
         r["launches_sharded"] = sharded_launches[r["name"]]
+        # and on the fuzz's and the soaks' card runs
+        r["launches_fuzz"] = fuzz_launches[r["name"]]
+        r["launches_soak"] = soak_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded",
+            "launches_fuzz", "launches_soak")
     emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

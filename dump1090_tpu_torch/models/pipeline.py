@@ -205,6 +205,12 @@ class DemodPipeline:
         self._debug_last_msg = None
 
     @property
+    def max_candidates(self) -> int:
+        """The candidate slots a buffer has now: cfg.max_candidates until
+        the device paths shrink it on quiet air or grow it on overflow."""
+        return self._mc
+
+    @property
     def _debugging(self) -> bool:
         return self.debug_flags is not None and self.debug_flags.any_demod_dump
 
@@ -511,6 +517,10 @@ class DemodPipeline:
         # while the first groups decode; streaming: one group of lookahead
         q: queue.Queue = queue.Queue(maxsize=0 if staged else 1)
         stop = threading.Event()
+        # a decode on a non-default stream keeps its uploads, and their
+        # allocations, on that stream: the reader uploads on the consumer's
+        # current stream
+        upload_stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
         def put(item) -> None:
             # retry until the consumer takes it or tears the generator down:
@@ -524,11 +534,13 @@ class DemodPipeline:
 
         def reader():
             try:
-                while not stop.is_set():
-                    bufs = next_bufs()
-                    put(make_group(bufs) if bufs else None)
-                    if not bufs:
-                        return
+                with (torch.cuda.stream(upload_stream) if upload_stream is not None
+                      else contextlib.nullcontext()):
+                    while not stop.is_set():
+                        bufs = next_bufs()
+                        put(make_group(bufs) if bufs else None)
+                        if not bufs:
+                            return
             except BaseException as e:  # surfaced on the consumer side
                 put(e)
 

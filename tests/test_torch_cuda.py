@@ -191,6 +191,42 @@ def test_pipeline_on_card_equals_cpu(cuda):
     assert outs["cuda"] == outs["cpu"]
 
 
+def test_two_decodes_on_their_own_streams_equal_cpu(cuda):
+    """Two stream_raw_device decodes at once, each in its own thread on its
+    own CUDA stream (the soak's two planes), each equal to its CPU run: a
+    decode on a non-default stream keeps its uploads and their allocations
+    on that stream."""
+    import threading
+
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    datas = [planted_capture(8, 60, seed=seed, noise_sigma=3.0)[0] for seed in (23, 24)]
+
+    def decode(data, dev):
+        p = DemodPipeline(PipelineConfig(batch_buffers=2, dispatch_groups=2, max_candidates=16),
+                          clock=lambda: NOW, device=dev)
+        return b"".join(p.stream_raw_device(io.BytesIO(data))), p.stats
+
+    got, errors = {}, []
+
+    def work(k):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                got[k] = decode(datas[k], cuda)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for k, data in enumerate(datas):
+        assert got[k] == decode(data, "cpu") and got[k][0]
+
+
 def test_run_device_on_card_equals_cpu(cuda):
     """The unpacked group emission (run_device) on the card, with candidate
     growth forced, against the CPU run."""

@@ -4,9 +4,9 @@ decode, decode_captures, the message hub over run_device, the host-resolve
 path with its C++ runtime, its Python twin and the --debug dumps, the
 packed fronts and live buffers through run_source_device and run_source,
 the sharded decode's worker and --tpu-shard-time) with both made
-unimportable, and its entry points, the live CLI, the sharded decode and
-the worker among them, refuse to fall back to the CPU when no card is
-present."""
+unimportable, and its entry points, the live CLI, the sharded decode, the
+worker and the fuzz and soak tools among them, refuse to fall back to the
+CPU when no card is present.  Nor does it import the JAX package's tools."""
 
 import ast
 import os
@@ -34,10 +34,15 @@ def _imported_modules(path: Path):
 def test_no_file_imports_jax_or_the_jax_package():
     files = sorted((REPO / "dump1090_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and REPO / "dump1090_tpu_torch" / "io" / "rtlsdr.py" in files
+    assert REPO / "dump1090_tpu_torch" / "tools" / "soak_device.py" in files
+    # nor the JAX package's tools (tools/*.py, imported by their file names)
+    jax_tools = {p.stem for p in (REPO / "tools").glob("*.py")}
+    assert {"fuzz_diff", "soak_device"} <= jax_tools
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in FORBIDDEN, f"{f.relative_to(REPO)} imports {mod}"
+            assert root not in jax_tools, f"{f.relative_to(REPO)} imports {mod}"
 
 
 def test_decodes_with_jax_and_the_jax_package_unimportable():
@@ -194,3 +199,8 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
     r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--raw"], cwd=REPO,
                        capture_output=True)
     assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
+    # the fuzz and the soaks: the card is asked for before any work
+    for tool, flags in (("fuzz_diff", ["--n", "1"]), ("soak_device", ["--wall-minutes", "1"])):
+        r = subprocess.run([sys.executable, "-m", f"dump1090_tpu_torch.tools.{tool}", *flags],
+                           cwd=REPO, capture_output=True)
+        assert r.returncode != 0 and b"no CUDA device" in r.stderr and r.stdout == b""
