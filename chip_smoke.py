@@ -67,7 +67,17 @@ capture, checking what comes out:
     radio's 4 MB/s, dense air, a fleet and 67 s of quiet air a period, so
     the ICAO-cache and aircraft TTLs are crossed and the pipeline shrinks
     and regrows its shapes), each equal byte for byte to its CPU replay
-    under the recorded clocks.
+    under the recorded clocks;
+  * the stdin feed (`stdin_net`: the 16 dense blocks piped into `python -m
+    dump1090_tpu_torch --ifile - --net` by tools/net_capture.py on the card
+    and the CPU, raw out byte-equal and SBS equal with the MSG,3 positions
+    canonicalized; then cli.main --ifile - --raw over a pipe in this
+    process, one buffer a dispatch, equal to the file decode, timed a
+    buffer against its 65.536 ms of air);
+  * the sensitivity sweep (`snr`: tools/snr_sweep.py's streams at 12 SNRs
+    from -2 to 20 dB, 200 frames each, decoded with the resolver on the
+    card, on the host, and on the CPU: equal recovered sets, every frame
+    at 20 dB, phase-corrected frames at 11 and 12 dB).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -2027,6 +2037,187 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
     return launches
 
 
+class _Stdin:
+    """A stand-in for sys.stdin whose `.buffer` is the read end of a pipe
+    that a thread fills with `data` and then closes, so EOF arrives as it
+    does from `rtl_sdr - |`."""
+
+    def __init__(self, data: bytes):
+        import os
+        import threading
+
+        r, w = os.pipe()
+        self.buffer = os.fdopen(r, "rb")
+
+        def feed():
+            with os.fdopen(w, "wb") as f:
+                f.write(data)
+
+        self._thread = threading.Thread(target=feed, name="stdin-feed", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self._thread.join()
+        self.buffer.close()
+
+
+def stdin_net_phase(iq: bytes, dev: torch.device, tmp: Path) -> dict:
+    """The stdin feed, as `rtl_sdr - | dump1090 --ifile - --net` runs it:
+    one buffer a dispatch.  First tools/net_capture.py's protocol (a silence
+    buffer, then `iq` in whole 256 KiB buffers) through a `python -m
+    dump1090_tpu_torch --ifile - --net` subprocess on the card and then with
+    --device cpu: the raw-out streams byte-equal, and equal to the uppercase
+    `--raw` lines of a file decode of `iq`; the SBS streams equal once the
+    MSG,3 positions (a wall-clock latch pick) are canonicalized, with at
+    least one MSG,3.  Then cli.main(["--ifile", "-", "--raw"]) in this
+    process (counted), sys.stdin a pipe that a thread feeds: stdout equal to
+    `--ifile FILE --raw`, K1 and K2 launched once a dispatch and at least
+    once a buffer, the last dispatch's K1 and K2 inputs held against their
+    plain versions, and the time a buffer: between successive dispatches
+    (the feed outruns the decode) and over the whole run, against the
+    65.536 ms of air a buffer holds.  Returns the in-process run's
+    launches."""
+    from dump1090_tpu_torch.constants import DATA_LEN_BYTES
+    from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.tools import net_capture
+
+    n_bufs = len(iq) // DATA_LEN_BYTES
+    path = tmp / "stdin_air.bin"
+    path.write_bytes(iq)
+    file_s = run_cli(["--ifile", str(path), "--raw"], tmp / "stdin_file.txt")
+    want = (tmp / "stdin_file.txt").read_bytes()
+
+    runs, secs = {}, {}
+    for d in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        runs[d] = net_capture.capture(net_capture.ours_cmd(d), iq, cwd=str(REPO))
+        secs[f"net_capture_{d}_s"] = time.perf_counter() - t0
+    card, cpu = runs[dev.type], runs["cpu"]
+    if card["raw"] != cpu["raw"]:
+        raise AssertionError("stdin --net: raw-out on the card differs from --device cpu")
+    if card["raw"] != want.upper() or not want:
+        raise AssertionError("stdin --net: raw-out differs from the file decode's --raw lines")
+    canon = [net_capture.canonicalize_sbs(r["sbs"]) for r in (card, cpu)]
+    if canon[0] != canon[1]:
+        raise AssertionError("stdin --net: the canonical SBS stream differs from --device cpu")
+    if card["sbs"].count(b"MSG,3,") < 1:
+        raise AssertionError("stdin --net: no MSG,3 in the SBS stream")
+
+    stamps, marks = [], []
+    real_dispatch = pl.demod_resolve_group
+
+    def dispatch(*a, **k):
+        stamps.append(time.perf_counter())
+        marks.append([])
+        return real_dispatch(*a, marks=marks[-1], **k)
+
+    stdin, real_stdin = _Stdin(iq), sys.stdin
+    pl.demod_resolve_group, sys.stdin = dispatch, stdin
+    try:
+        with kernel_inputs(lambda kind, mc: "stdin") as rec:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            wall = run_cli(["--ifile", "-", "--raw"], tmp / "stdin_raw.txt")
+            launches = dict(_cuda.launches)
+    finally:
+        pl.demod_resolve_group, sys.stdin = real_dispatch, real_stdin
+        stdin.close()
+    if (tmp / "stdin_raw.txt").read_bytes() != want:
+        raise AssertionError("--ifile - --raw differs from --ifile FILE --raw")
+    if not (launches["gather_windows"] == launches["resolve_words"] == len(stamps) >= n_bufs):
+        raise AssertionError(f"stdin: {len(stamps)} dispatches for {n_bufs} buffers, "
+                             f"launches {launches}")
+    kernels = check_kernel_inputs(rec, "stdin")
+    per_buf = np.diff([t0] + stamps) * 1e3
+    device_ms = [m[0][1].elapsed_time(m[-1][1]) for m in marks]
+    emit({"phase": "stdin_net", "buffers": n_bufs, "buffer_ms": 65.536,
+          "net_raw_equal_cpu": True, "net_raw_equal_file": True, "net_sbs_equal_cpu": True,
+          "raw_lines": card["raw"].count(b"\n"), "sbs_lines": card["sbs"].count(b"\n"),
+          "msg3_lines": card["sbs"].count(b"MSG,3,"), **secs,
+          "stdin_raw_equal_file": True, "stdin_s": wall, "file_s": file_s,
+          "dispatches": len(stamps), "ms_per_buffer_mean": wall * 1e3 / n_bufs,
+          "ms_between_dispatches": {"median": float(np.median(per_buf)),
+                                    "max": float(per_buf.max()), "min": float(per_buf.min())},
+          "device_ms_per_dispatch": {"median": float(np.median(device_ms)),
+                                     "max": max(device_ms)},
+          "launches": launches, "kernels_at_last_dispatch": kernels})
+    return launches
+
+
+SNRS = (-2, 0, 2, 4, 6, 8, 10, 11, 12, 13, 14, 20)
+
+
+def snr_phase(dev: torch.device, frames: int = 200) -> dict:
+    """The sensitivity sweep (dump1090_tpu_torch.tools.snr_sweep) on the
+    card, counted: at each of SNRS, `frames` DF17 frames at that SNR with
+    random carrier phase over AWGN (the JAX tool's stream for the point),
+    decoded with the resolver on the card (run_device, K1 and K2) and on the
+    host (run, K1), and on the CPU.  Every crcok set, and the set recovered
+    through the phase-corrected pass, must be equal across the three; at 20
+    dB every planted frame must come back, and at 11 and 12 dB at least one
+    through the phase-corrected pass.  K1's and K2's inputs of the 12 dB
+    stream's last dispatch on each card path are held against their plain
+    versions.  Emits the rate table; returns the card runs' launches."""
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.tools import snr_sweep
+
+    at = {"snr": None, "resolve": None}
+
+    def pick(kind, mc):
+        return f"snr12/{at['resolve']}" if at["snr"] == 12 and at["resolve"] else None
+
+    table, card_s, cpu_s = [], collections.Counter(), 0.0
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with kernel_inputs(pick) as rec:
+        for snr in SNRS:
+            stream, hexes = snr_sweep.point_stream(snr, frames)
+            planted = set(hexes)
+            got = {}
+            for resolve in ("device", "host"):
+                at.update(snr=snr, resolve=resolve)
+                t1 = time.perf_counter()
+                corrected = set()
+                got[resolve] = (snr_sweep.decode_ours(stream, resolve == "device", dev,
+                                                      corrected=corrected), corrected)
+                torch.cuda.synchronize()
+                card_s[resolve] += time.perf_counter() - t1
+            at.update(snr=None, resolve=None)
+            t1 = time.perf_counter()
+            corrected = set()
+            got["cpu"] = (snr_sweep.decode_ours(stream, False, "cpu", corrected=corrected),
+                          corrected)
+            cpu_s += time.perf_counter() - t1
+            if not got["device"] == got["host"] == got["cpu"]:
+                raise AssertionError(f"snr {snr} dB: the recovered sets differ between the "
+                                     f"card's resolve paths and the CPU")
+            found, fixed = got["device"][0] & planted, got["device"][1] & planted
+            table.append({"snr_db": snr, "recovered": len(found), "frames": frames,
+                          "rate": len(found) / frames, "phase_corrected": len(fixed),
+                          "crcok_not_planted": len(got["device"][0] - planted)})
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    rows = {r["snr_db"]: r for r in table}
+    if rows[20]["recovered"] != frames:
+        raise AssertionError(f"snr: 20 dB recovered {rows[20]['recovered']} of {frames}")
+    for snr in (11, 12):
+        if rows[snr]["phase_corrected"] < 1:
+            raise AssertionError(f"snr: no planted frame came back through the "
+                                 f"phase-corrected pass at {snr} dB")
+    if any(launches[k] <= 0 for k in ("gather_windows", "resolve_words")):
+        raise AssertionError(f"snr: a kernel did not launch: {launches}")
+    if set(rec) != {("snr12/device", "k1"), ("snr12/device", "k2"), ("snr12/host", "k1")}:
+        raise AssertionError(f"snr: K1's and K2's inputs not recorded at 12 dB: {sorted(rec)}")
+    kernels = check_kernel_inputs(rec, "snr")
+    emit({"phase": "snr", "frames": frames, "equal": True, "table": table,
+          "card_s": dict(card_s), "cpu_s": cpu_s, "phase_s": wall, "launches": launches,
+          "kernels_at_12db": kernels})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2243,6 +2434,11 @@ def main() -> int:
     fuzz_launches = fuzz_phase(args.seed, dev)
     soak_launches = soak_phase(args.seed, dev)
 
+    # ---- the stdin feed with the network services, and the SNR sweep ----------
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        stdin_launches = stdin_net_phase(b"".join(blocks), dev, Path(tmp))
+    snr_launches = snr_phase(dev)
+
     gather_stage_kernels_phase(args.seed)
 
     paths = {
@@ -2266,6 +2462,8 @@ def main() -> int:
         "sharded": (sharded_launches, ("gather_windows", "resolve_words")),
         "fuzz": (fuzz_launches, ("gather_windows", "resolve_words")),
         "soak": (soak_launches, ("gather_windows", "resolve_words")),
+        "stdin": (stdin_launches, ("gather_windows", "resolve_words")),
+        "snr": (snr_launches, ("gather_windows", "resolve_words")),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():
@@ -2292,9 +2490,12 @@ def main() -> int:
         # and on the fuzz's and the soaks' card runs
         r["launches_fuzz"] = fuzz_launches[r["name"]]
         r["launches_soak"] = soak_launches[r["name"]]
+        # and on the stdin feed's and the SNR sweep's
+        r["launches_stdin"] = stdin_launches[r["name"]]
+        r["launches_snr"] = snr_launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded",
-            "launches_fuzz", "launches_soak")
+            "launches_fuzz", "launches_soak", "launches_stdin", "launches_snr")
     emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 """Differential fuzzing on the card: random IQ streams decoded on `--device`
-and on the CPU by the same mode of the port; any difference is a finding
-(a port of tools/fuzz_diff.py, whose oracle is the reference binary; here
-the oracle is the port's own CPU run, which tests/test_torch_*.py hold bit
-for bit against the JAX package).
+and on the CPU by the same mode of the port, and, with `--ref`, by an
+oracle that speaks the reference's CLI; any difference is a finding (a
+port of tools/fuzz_diff.py).  The CPU oracle is the port's own CPU run,
+which tests/test_torch_*.py hold bit for bit against the JAX package.
 
 Stream recipes mix the hard cases: pure noise at a random level (0),
 uniform garbage with saturated samples (1), and a noise floor with
@@ -15,13 +15,17 @@ random_stream gives the bytes of the JAX tool's.
     python -m dump1090_tpu_torch.tools.fuzz_diff [--n 50] [--seed 0]
         [--mode raw|nofix|aggressive|verbose|device|device-nofix|
                 device-aggressive|device-verbose|sharded|sharded-device ...]
-        [--device cuda] [--out DIR]
+        [--device cuda] [--ref CMD] [--out DIR]
 
 The first six streams take recipes 0-5 (each from its own generator), and
-the seed's streams, the JAX tool's, follow.
+the seed's streams, the JAX tool's, follow.  --ref CMD (the reference
+binary, or any command line that speaks its CLI, see refbuild.py) decodes
+each stream with the JAX tool's flags for the mode (decode_ref) from a
+file, and each mode's output must equal that too.
 
-Exit 0 when every stream's output in every mode equals the CPU's and at
-least one line was compared; a failing stream is saved under --out.
+Exit 0 when every stream's output in every mode equals the CPU's (and the
+oracle's) and at least one line was compared; a failing stream is saved
+under --out.
 """
 
 from __future__ import annotations
@@ -111,13 +115,22 @@ def streams(n: int, seed: int):
 def _cli_lines(argv: list, in_process: bool) -> list[str]:
     """stdout lines of the port's CLI: `python -m dump1090_tpu_torch` in a
     subprocess, or cli.main in this process (where the kernels' launch
-    counters see it)."""
+    counters see it).  In process, the signal handlers cli.main installs
+    are put back: left at SIG_DFL, SIGPIPE would kill this process at its
+    next write to a closed socket."""
     if in_process:
+        import signal
+
         from .. import cli
 
         out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
+        saved = {s: signal.getsignal(s) for s in (signal.SIGPIPE, signal.SIGWINCH)}
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+        finally:
+            for s, h in saved.items():
+                signal.signal(s, h)
         if rc != 0:
             raise RuntimeError(f"cli.main({argv}) returned {rc}")
         return out.getvalue().splitlines()
@@ -176,35 +189,70 @@ def decode_ours(stream: np.ndarray, mode: str, device="cuda", *,
     return out
 
 
+def ref_flags(mode: str) -> list[str]:
+    """The reference's flags for a mode: the decoder mode's, with --raw
+    unless the mode is verbose (the JAX tool's decode_ref)."""
+    if mode.endswith("nofix"):
+        return ["--raw", "--no-fix"]
+    if mode.endswith("aggressive"):
+        return ["--raw", "--aggressive"]
+    return [] if mode.endswith("verbose") else ["--raw"]
+
+
+def decode_ref(stream: np.ndarray, ref_cmd: list[str], mode: str) -> list[str]:
+    """The oracle's output for one stream in one mode, compared as
+    decode_ours gives it: the whole display for the verbose modes, else
+    the `*hex;` lines."""
+    with tempfile.NamedTemporaryFile(suffix=".bin") as tf:
+        stream.tofile(tf.name)
+        out = subprocess.run(
+            [*ref_cmd, *ref_flags(mode), "--ifile", tf.name], capture_output=True, text=True,
+            timeout=600, cwd=REPO,
+        ).stdout
+    if mode.endswith("verbose"):
+        return out.splitlines()
+    return [line.strip() for line in out.splitlines() if line.startswith("*")]
+
+
 def fuzz(n: int, seed: int, modes, device, *, in_process: bool = False,
-         out_dir: Path | None = None, around=None, log=print) -> dict:
+         out_dir: Path | None = None, around=None, ref_cmd: list[str] | None = None,
+         log=print) -> dict:
     """Decode `n` random streams from `seed` (see streams) in each mode on
-    `device` and on the CPU and compare.
-    `around(mode)`, when given, is a context manager entered around each
-    decode on `device`.  Returns {"streams_per_recipe", "lines" (compared,
-    per mode), "fails" [(stream, mode)]}."""
+    `device` and on the CPU and compare; with `ref_cmd`, also with the
+    oracle's decode of each stream (one run for the modes that share
+    flags).  `around(mode)`, when given, is a context manager entered
+    around each decode on `device`.  Returns {"streams_per_recipe",
+    "lines" (compared, per mode), "fails" [(stream, mode)]}."""
     per_recipe, lines, fails = Counter(), Counter(), []
     for k, (recipe, stream) in enumerate(streams(n, seed)):
         per_recipe[recipe] += 1
+        oracle = {}
         for mode in modes:
             with around(mode) if around is not None else contextlib.nullcontext():
                 ours = decode_ours(stream, mode, device, in_process=in_process)
             want = decode_ours(stream, mode, "cpu", in_process=in_process)
             lines[mode] += len(want)
-            if ours == want:
+            ref = None
+            if ref_cmd is not None:
+                key = tuple(ref_flags(mode))
+                if key not in oracle:
+                    oracle[key] = decode_ref(stream, ref_cmd, mode)
+                ref = oracle[key]
+            if ours == want and ref in (None, ours):
                 log(f"[{k}] {mode} ok ({len(ours)} lines, recipe {recipe}, "
                     f"{len(stream) // DATA_LEN_BYTES} buffers)")
                 continue
             fails.append((k, mode))
-            msg = f"[{k}] {mode} MISMATCH {device} {len(ours)} cpu {len(want)} lines"
+            other, name = (want, "cpu") if ours != want else (ref, "ref")
+            msg = f"[{k}] {mode} MISMATCH {device} {len(ours)} {name} {len(other)} lines"
             if out_dir is not None:
                 path = Path(out_dir) / f"fuzz_fail_{seed}_{k}_{mode}.bin"
                 stream.tofile(path)
                 msg += f" -> {path}"
             log(msg)
-            for a, b in zip(ours, want):
+            for a, b in zip(ours, other):
                 if a != b:
-                    log(f"    first diff: {device} {a} cpu {b}")
+                    log(f"    first diff: {device} {a} {name} {b}")
                     break
     return {"streams_per_recipe": {r: per_recipe[r] for r in sorted(per_recipe)},
             "lines": dict(lines), "fails": fails}
@@ -221,13 +269,22 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; no card is an error) or cpu")
     ap.add_argument("--out", default=os.curdir, help="directory for failing streams")
+    ap.add_argument("--ref", default=None,
+                    help="also compare with this oracle (the reference binary, or a "
+                    "command line that speaks its CLI)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    ref_cmd = None
+    if args.ref is not None:
+        from .refbuild import reference_command
 
-    res = fuzz(args.n, args.seed, args.mode, device, out_dir=Path(args.out))
+        ref_cmd = reference_command(args.ref)
+
+    res = fuzz(args.n, args.seed, args.mode, device, out_dir=Path(args.out), ref_cmd=ref_cmd)
     total = sum(res["lines"].values())
     print(f"\n{args.n * len(args.mode) - len(res['fails'])}/{args.n * len(args.mode)} "
-          f"stream-modes identical on {device} and the CPU, {total} lines compared, "
+          f"stream-modes identical on {device} and the CPU"
+          f"{' and the oracle' if ref_cmd else ''}, {total} lines compared, "
           f"streams per recipe {res['streams_per_recipe']}")
     if total == 0:
         print("FUZZ FAIL: vacuous run (no line decoded)")

@@ -7,10 +7,12 @@ resolve, against the JAX native runtime), device and device-aggressive on
 one stream of each recipe, and in sharded-device (a (1, 4) mesh of the CPU
 against JAX's virtual devices) and device-verbose (the CLI) on one.  The
 tool's entry point compares a device with the CPU, saves nothing when all
-agree, and refuses to run without a card unless the CPU is named.
+agree, and refuses to run without a card unless the CPU is named; its
+in-process CLI run leaves the process's SIGPIPE handler as it found it.
 Tolerance: exact equality."""
 
 import io
+import signal
 import sys
 from contextlib import redirect_stdout
 from pathlib import Path
@@ -98,6 +100,15 @@ def test_device_verbose_equals_jax(streams, jfuzz):
     assert tfuzz.decode_ours(streams[3], "device-verbose", "cpu") == want
     assert tfuzz.decode_ours(streams[3], "device-verbose", "cpu", in_process=True) == want
     assert any(line.startswith("*") for line in want)
+
+
+def test_in_process_cli_puts_the_signal_handlers_back(streams):
+    """cli.main sets SIGPIPE to SIG_DFL for its own process; the in-process
+    run must put it back, or the caller dies at its next write to a closed
+    socket."""
+    before = signal.getsignal(signal.SIGPIPE)
+    assert tfuzz.decode_ours(streams[3], "device-verbose", "cpu", in_process=True)
+    assert signal.getsignal(signal.SIGPIPE) == before != signal.SIG_DFL
 
 
 def test_main_compares_with_the_cpu(tmp_path):

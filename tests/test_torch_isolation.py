@@ -5,8 +5,10 @@ path with its C++ runtime, its Python twin and the --debug dumps, the
 packed fronts and live buffers through run_source_device and run_source,
 the sharded decode's worker and --tpu-shard-time) with both made
 unimportable, and its entry points, the live CLI, the sharded decode, the
-worker and the fuzz and soak tools among them, refuse to fall back to the
-CPU when no card is present.  Nor does it import the JAX package's tools."""
+worker and every tool of dump1090_tpu_torch/tools/ that decodes IQ among
+them, refuse to fall back to the CPU when no card is present.  Nor does it import the JAX
+package's tools or put their directory on sys.path, and the tools run with
+jax, the JAX package and the JAX tools' modules made unimportable."""
 
 import ast
 import os
@@ -19,6 +21,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "dump1090_tpu")
+# the port's tools, each a port of the JAX tool of the same name in tools/
+TOOLS = ("fuzz_diff", "soak_device", "snr_sweep", "net_capture", "fuzz_hex", "sweep_hex",
+         "http_diff", "netdebug_diff", "gen_cpr_vectors", "refbuild")
+# the tools that decode IQ and so take --device (the others need no card)
+CARD_TOOLS = TOOLS[:4]
 
 
 def _imported_modules(path: Path):
@@ -34,11 +41,12 @@ def _imported_modules(path: Path):
 def test_no_file_imports_jax_or_the_jax_package():
     files = sorted((REPO / "dump1090_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and REPO / "dump1090_tpu_torch" / "io" / "rtlsdr.py" in files
-    assert REPO / "dump1090_tpu_torch" / "tools" / "soak_device.py" in files
+    assert {REPO / "dump1090_tpu_torch" / "tools" / f"{t}.py" for t in TOOLS} <= set(files)
     # nor the JAX package's tools (tools/*.py, imported by their file names)
     jax_tools = {p.stem for p in (REPO / "tools").glob("*.py")}
-    assert {"fuzz_diff", "soak_device"} <= jax_tools
+    assert set(TOOLS) <= jax_tools
     for f in files:
+        assert "sys.path" not in f.read_text(), f"{f.relative_to(REPO)} edits sys.path"
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
             assert root not in FORBIDDEN, f"{f.relative_to(REPO)} imports {mod}"
@@ -199,8 +207,44 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
     r = subprocess.run([sys.executable, "-m", "dump1090_tpu_torch", "--raw"], cwd=REPO,
                        capture_output=True)
     assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
-    # the fuzz and the soaks: the card is asked for before any work
-    for tool, flags in (("fuzz_diff", ["--n", "1"]), ("soak_device", ["--wall-minutes", "1"])):
-        r = subprocess.run([sys.executable, "-m", f"dump1090_tpu_torch.tools.{tool}", *flags],
-                           cwd=REPO, capture_output=True)
-        assert r.returncode != 0 and b"no CUDA device" in r.stderr and r.stdout == b""
+    # every tool that decodes IQ: the card is asked for before any work
+    flags = {"fuzz_diff": ["--n", "1"], "soak_device": ["--wall-minutes", "1"],
+             "net_capture": ["--ours", "--iq", "x", "--out-raw", "y", "--out-sbs", "z"]}
+    procs = {t: subprocess.Popen([sys.executable, "-m", f"dump1090_tpu_torch.tools.{t}",
+                                  *flags.get(t, [])], cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE) for t in CARD_TOOLS}
+    for tool, p in procs.items():
+        out, err = p.communicate(timeout=120)
+        assert p.returncode != 0 and b"no CUDA device" in err and out == b"", tool
+
+
+def test_tools_run_with_jax_and_the_jax_tools_unimportable(tmp_path):
+    """The sweep, the CPR vectors and the hex stream of the tools run on
+    --device cpu with jax, the JAX package and every JAX tool's module name
+    made unimportable, and none of them enters sys.modules."""
+    jax_tools = sorted(p.stem for p in (REPO / "tools").glob("*.py"))
+    code = f"""
+import contextlib, io, sys
+for name in ["jax", "dump1090_tpu", *{jax_tools!r}]:
+    sys.modules[name] = None
+from dump1090_tpu_torch.tools import (fuzz_hex, gen_cpr_vectors, http_diff, net_capture,
+                                      netdebug_diff, refbuild, snr_sweep, sweep_hex)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert snr_sweep.main(["--device", "cpu", "--frames", "10", "--snrs", "20"]) == 0
+    assert gen_cpr_vectors.main([]) == 0
+assert "| 20 | 100.0% | 100.0% |" in out.getvalue(), out.getvalue()
+assert out.getvalue().count("\\nA ") > 1000
+import numpy as np
+assert fuzz_hex.gen_stream(np.random.default_rng(0), 50).count(b"\\n") >= 50
+assert len(sweep_hex.SWEEPS) == 9 and http_diff.scenario()
+assert not any(m in {jax_tools!r} or m == "jax" or m.startswith(("jax.", "dump1090_tpu."))
+               for m, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+    env = dict(os.environ, DUMP1090_REF_SRC=str(tmp_path / "no_reference"))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "ok"
+    assert "reference column skipped" in r.stderr
