@@ -77,7 +77,16 @@ capture, checking what comes out:
   * the sensitivity sweep (`snr`: tools/snr_sweep.py's streams at 12 SNRs
     from -2 to 20 dB, 200 frames each, decoded with the resolver on the
     card, on the host, and on the CPU: equal recovered sets, every frame
-    at 20 dB, phase-corrected frames at 11 and 12 dB).
+    at 20 dB, phase-corrected frames at 11 and 12 dB);
+  * the measurement tools (`measure`: tools/bench.py's sustained_e2e
+    protocol in full in a process of its own; the bench's first group of
+    1,536 buffers, formatted by its sustained run, byte-equal to
+    DemodPipeline.stream_raw_device over the same buffers, with every
+    planted frame of at most one flipped bit among its lines; each of
+    tools/measure.py's ten probes once; tools/exp_demod_front.py --check
+    --time), each exiting 0 on the card with every roofline and busy
+    share in [0, 1].  The e2e phase's sustained rate and stage split are
+    the tools' own code.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; every kernel must have launched on the path that uses it.  Every
@@ -109,6 +118,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from dump1090_tpu_torch.constants import DATA_LEN_BYTES
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 NOW = 1_700_000_000        # frozen decode clock: the run is deterministic
@@ -548,7 +559,7 @@ def captures_vs_cpu_phase(blocks: list, planted: list, dev: torch.device) -> Non
         raise AssertionError("decode_captures on the card differs from the CPU run")
     frames = check_planted(card[0], want)
     emit({"phase": "decode_captures_vs_cpu", "equal": True, "captures": len(caps),
-          "buffers": [len(c) // 262144 for c in caps],
+          "buffers": [len(c) // DATA_LEN_BYTES for c in caps],
           "messages": sum(len(r) for r in card[0]), "planted_checked": frames,
           "cuda_s": card[1], "cpu_s": cpu[1]})
 
@@ -565,7 +576,7 @@ def captures_e2e_phase(blocks: list, planted: list, dev: torch.device, n: int = 
 
     caps, want = captures_from_blocks(blocks, planted, n, lambda k: 4 + (5 * k) % 13,
                                       lambda k: k)
-    n_bufs = sum(len(c) // 262144 for c in caps)
+    n_bufs = sum(len(c) // DATA_LEN_BYTES for c in caps)
 
     # instrument the run from outside: the dispatches (with their per-stage
     # CUDA events) and the host's message decode
@@ -622,7 +633,7 @@ def captures_e2e_phase(blocks: list, planted: list, dev: torch.device, n: int = 
         device_ms.append(marks[0][1].elapsed_time(marks[-1][1]))
         for (_, a), (name, b) in zip(marks, marks[1:]):
             stages[name] += a.elapsed_time(b) / len(dispatches)
-    rounds = -(-max(len(c) // 262144 for c in caps) // 4)
+    rounds = -(-max(len(c) // DATA_LEN_BYTES for c in caps) // 4)
     shapes = [(mc, mo) for _, mc, mo, _ in dispatches]
     n_msgs = sum(len(r) for r in results)
     samples = n_bufs * BLOCK_SAMPLES
@@ -641,60 +652,6 @@ def captures_e2e_phase(blocks: list, planted: list, dev: torch.device, n: int = 
            "peak_device_bytes": peak}
     emit(res)
     return launches, solo_launches
-
-
-def stage_split(xg: torch.Tensor, shapes: dict) -> dict:
-    """Per-stage device time of one resident group (CUDA events), and the
-    device-to-host copy of its outputs, at the shapes the main path settled
-    on."""
-    from dump1090_tpu_torch.constants import BUF_SAMPLES, FULL_LEN_SAMPLES
-    from dump1090_tpu_torch.models.pipeline import _Fetch
-    from dump1090_tpu_torch.ops.resolve import demod_resolve_group
-
-    ca = torch.zeros(1024, dtype=torch.int32, device=xg.device)
-    kw = dict(scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, **shapes)
-    demod_resolve_group(xg, ca, ca, NOW, True, False, **kw)  # warm
-    split = {}
-    reps = 3
-    for _ in range(reps):
-        marks = []
-        out = demod_resolve_group(xg, ca, ca, NOW, True, False, marks=marks, **kw)
-        d2h_start = torch.cuda.Event(enable_timing=True)
-        d2h_start.record()
-        fetch = _Fetch(out[:6])
-        d2h_end = torch.cuda.Event(enable_timing=True)
-        d2h_end.record()
-        fetch.get()
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            split[name] = split.get(name, 0.0) + a.elapsed_time(b) / reps
-        split["d2h"] = split.get("d2h", 0.0) + d2h_start.elapsed_time(d2h_end) / reps
-    return split
-
-
-def sustained(xg: torch.Tensor, shapes: dict, n_groups: int) -> float:
-    """Msamples/s of back-to-back groups on a resident input: the cache
-    chains through the groups and each group's outputs are fetched to
-    pinned host memory, three groups in flight, as the pipeline does."""
-    from dump1090_tpu_torch.constants import BLOCK_SAMPLES, BUF_SAMPLES, FULL_LEN_SAMPLES
-    from dump1090_tpu_torch.models.pipeline import _Fetch
-    from dump1090_tpu_torch.ops.resolve import demod_resolve_group
-
-    kw = dict(scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, **shapes)
-    ca = torch.zeros(1024, dtype=torch.int32, device=xg.device)
-    ct = torch.zeros(1024, dtype=torch.int32, device=xg.device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pending = []
-    for _ in range(n_groups):
-        out = demod_resolve_group(xg, ca, ct, NOW, True, False, **kw)
-        ca, ct = out[6], out[7]
-        pending.append(_Fetch(out[:6]))
-        if len(pending) > 3:
-            pending.pop(0).get()
-    for f in pending:
-        f.get()
-    dt = time.perf_counter() - t0
-    return n_groups * xg.shape[0] * xg.shape[1] * BLOCK_SAMPLES / dt / 1e6
 
 
 class _FirstWrite(io.RawIOBase):
@@ -1297,7 +1254,7 @@ def captures_host_phase(blocks: list, planted: list, dev: torch.device, n: int =
             raise AssertionError(f"capture {k}: the host strategy differs from the device strategy")
     frames = check_planted(host, want)
     emit({"phase": "decode_captures_host", "captures": n, "equal_device_strategy": True,
-          "buffers": sum(len(c) // 262144 for c in caps), "messages": sum(len(r) for r in host),
+          "buffers": sum(len(c) // DATA_LEN_BYTES for c in caps), "messages": sum(len(r) for r in host),
           "planted_checked": frames, "host_strategy_s": host_s, "device_strategy_s": dev_s,
           "launches": launches})
     return launches
@@ -1442,7 +1399,7 @@ def live_phase(data: bytes, dev: torch.device, tmp: Path, n_live: int = 64) -> t
 
     lib = _build_stub()
     air = tmp / "live.bin"
-    air.write_bytes(data[: n_live * 262144])
+    air.write_bytes(data[: n_live * DATA_LEN_BYTES])
 
     def pipeline(**kw):
         return DemodPipeline(PipelineConfig(), clock=lambda: NOW, device=dev, **kw)
@@ -1454,7 +1411,7 @@ def live_phase(data: bytes, dev: torch.device, tmp: Path, n_live: int = 64) -> t
 
     # warm-up: kernels loaded, the live shapes allocated on the card
     with open(air, "rb") as f:
-        pipeline().run_device(io.BytesIO(f.read(4 * 262144)), lambda mm: None)
+        pipeline().run_device(io.BytesIO(f.read(4 * DATA_LEN_BYTES)), lambda mm: None)
     torch.cuda.synchronize()
 
     with stub_radio(lib, air, 200_000):
@@ -1522,7 +1479,7 @@ def live_phase(data: bytes, dev: torch.device, tmp: Path, n_live: int = 64) -> t
 
     # the live CLI over one transfer, which nothing can overwrite
     one = tmp / "live_one.bin"
-    one.write_bytes(data[:262144])
+    one.write_bytes(data[:DATA_LEN_BYTES])
     with open(one, "rb") as f:
         want = b"".join(pipeline().stream_raw_device(f))
     with stub_radio(lib, one, None):
@@ -1602,7 +1559,7 @@ def straddle_block(sp: int) -> tuple:
     buffer, the third of them across the shard's right edge (the last one
     into the buffer's post-scan tail).  Positions count from the buffer's
     start, whose first 238 samples are the initial silent carry.  Returns
-    (262144 IQ bytes, the frames in order)."""
+    (DATA_LEN_BYTES IQ bytes, the frames in order)."""
     from dump1090_tpu_torch.constants import BLOCK_SAMPLES, CARRY_SAMPLES, SCAN_POSITIONS
     from dump1090_tpu_torch.utils.synth import frame_to_iq, make_df17_frame
 
@@ -1795,7 +1752,7 @@ def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> 
                           "max_abs_err": err_w,
                           "ms": cuda_ms(lambda: resolve.resolve_words(*walk), 10)},
     }
-    emit({"phase": "sharded", "capture_buffers": len(capture) // 262144,
+    emit({"phase": "sharded", "capture_buffers": len(capture) // DATA_LEN_BYTES,
           "meshes": ["1x1", "1x4", "2x4"], "modes": list(modes), "equal_unsharded": True,
           "equal_cpu": True, "planted_checked": checked, "matrix_s": matrix_s,
           "grow_s": grow_s, "grown_32x2": sorted(set(seen)),
@@ -2077,7 +2034,6 @@ def stdin_net_phase(iq: bytes, dev: torch.device, tmp: Path) -> dict:
     (the feed outruns the decode) and over the whole run, against the
     65.536 ms of air a buffer holds.  Returns the in-process run's
     launches."""
-    from dump1090_tpu_torch.constants import DATA_LEN_BYTES
     from dump1090_tpu_torch.models import pipeline as pl
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.tools import net_capture
@@ -2218,6 +2174,128 @@ def snr_phase(dev: torch.device, frames: int = 200) -> dict:
     return launches
 
 
+# the probes that measure a fresh process (the link before the first
+# kernel, the first dispatch's load) or run the profiler (which a session
+# earlier in a process disturbs, gather_stage_kernels) get one of their own
+PROBES_IN_SUBPROCESS = ("link", "staged-h2d", "trace")
+
+
+def _shares(obj, path: str = "", inside: bool = False) -> dict:
+    """Every roofline or busy share in a tool's record (keys `sol`,
+    `sol_*` and `*share`, and the numbers under them), by key path."""
+    out = {}
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            sub = f"{path}.{k}" if path else k
+            share = inside or k == "sol" or k.startswith("sol_") or k.endswith("share")
+            if share and isinstance(v, (int, float)):
+                out[sub] = v
+            else:
+                out.update(_shares(v, sub, share))
+    return out
+
+
+def _tool_record(out: str, name: str) -> dict:
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if not recs:
+        raise AssertionError(f"{name} printed no JSON record")
+    rec = recs[-1]
+    shares = _shares(rec)
+    if any(not 0 <= v <= 1.0 for v in shares.values()):
+        raise AssertionError(f"{name}: a share outside [0, 1]: {shares}")
+    if rec.get("device", {}).get("platform") != "gpu":
+        raise AssertionError(f"{name} did not run on the card: {rec.get('device')}")
+    return rec
+
+
+def _run_tool(module: str, argv: list, name: str, timeout: int = 600) -> tuple:
+    """`python -m dump1090_tpu_torch.tools.<module> argv` in a process of its
+    own: (its record, seconds).  A non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"dump1090_tpu_torch.tools.{module}", *argv],
+                       cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{name} exited {r.returncode}: {r.stderr[-3000:]}{r.stdout[-2000:]}")
+    return _tool_record(r.stdout, name), time.perf_counter() - t0
+
+
+def _call_tool(main, argv: list, name: str) -> tuple:
+    """A tool's main in this process: (its record, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{name} returned {rc}: {out.getvalue()[-2000:]}")
+    return _tool_record(out.getvalue(), name), time.perf_counter() - t0
+
+
+def measure_phase(dev: torch.device, tmp: Path, probe_nb: int = 128) -> tuple:
+    """The measurement tools on the card: tools.bench in full (its own
+    process: the upload probe comes before any kernel, the cold file
+    first), the bench's first group against DemodPipeline.stream_raw_device
+    over the same buffers (byte-equal, every planted frame of at most one
+    flipped bit among its lines), each probe of tools.measure once at its defaults (--nb
+    probe_nb), and exp_demod_front --check --time.  Every tool must exit 0
+    on the card with every share in [0, 1].  Returns the launches of the
+    bench and of the probes, each counted in the tool's own run."""
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.tools import air, bench, exp_demod_front, measure
+
+    rec, secs = _run_tool("bench", [], "bench")
+    if rec.get("error") or not rec["value"] > 0 or "sol_fraction" not in rec:
+        raise AssertionError(f"bench failed: {rec}")
+    bench_launches = rec["launches"]
+    emit({"phase": "measure_bench", "seconds": secs, **rec})
+
+    # the bench's first group, formatted by its sustained run, against the
+    # product file decode of the same buffers (fresh cache, same clock)
+    raw, planted = air.planted_air()
+    nb, g = bench.NB, bench.G
+    x = bench.upload_groups(air.bench_groups(raw, nb, g, 1), dev)[0]
+    program = bench.Group(bench.MC, bench.MOS, bench.MOL)
+    program.fit(x)
+    zero = torch.zeros(1024, dtype=torch.int32, device=dev)
+    got = bench.sustained_run(program, [x], zero, zero.clone(), t=1, keep=True)["raw"][0]
+    del x
+    path = tmp / "bench_group.bin"
+    reps = -(-nb * g * DATA_LEN_BYTES // len(raw))
+    path.write_bytes(np.tile(raw, reps)[: nb * g * DATA_LEN_BYTES].tobytes())
+    p = DemodPipeline(PipelineConfig(batch_buffers=nb, dispatch_groups=g),
+                      clock=lambda: bench.NOW, device=dev)
+    with open(path, "rb") as f:
+        want = b"".join(p.stream_raw_device(f))
+    path.unlink()
+    if got != want:
+        raise AssertionError("the bench's first group differs from stream_raw_device's bytes")
+    # every planted frame with at most one flipped bit (the default fix
+    # repairs one; two need --aggressive), as its clean frame
+    lines = set(got.split())
+    fixable = {b"*" + c.hex().encode() + b";" for _, _, c, nflip in planted if nflip <= 1}
+    if not fixable <= lines:
+        raise AssertionError(f"{len(fixable - lines)} planted frames missing from the "
+                             "bench's first group")
+    emit({"phase": "measure_bench_group", "buffers": nb * g, "raw_equal_stream_raw_device": True,
+          "lines": len(got.split()), "planted_found": len(fixable),
+          "shapes": {"mc": program.mc, "mos": program.mos, "mol": program.mol}})
+
+    probe_launches = collections.Counter()
+    nb_arg = ["--nb", str(probe_nb)]
+    for probe in measure.PROBES:
+        argv = ["--probe", probe, *nb_arg]
+        if probe in PROBES_IN_SUBPROCESS:
+            rec, secs = _run_tool("measure", argv + ["--trace-dir", str(tmp / "trace")], probe)
+        else:
+            rec, secs = _call_tool(measure.main, argv, probe)
+        probe_launches.update(rec["launches"])
+        emit({"phase": f"measure_{probe}", "seconds": secs, **rec})
+        torch.cuda.empty_cache()
+    rec, secs = _call_tool(exp_demod_front.main, ["--check", "--time", *nb_arg],
+                           "exp_demod_front")
+    emit({"phase": "measure_exp_demod_front", "seconds": secs, **rec})
+    return bench_launches, dict(probe_launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2233,6 +2311,8 @@ def main() -> int:
     from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.ops.resolve import _group_front, _group_precompute
+    from dump1090_tpu_torch.tools.bench import Group, sustained_run
+    from dump1090_tpu_torch.tools.measure import group_stage_split
     from dump1090_tpu_torch.utils.synth import planted_capture
 
     dev = torch.device("cuda", 0)
@@ -2250,7 +2330,7 @@ def main() -> int:
     # one full group resident on the card, framed as the pipeline frames it
     from dump1090_tpu_torch.io.sources import iq_buffers
 
-    bufs = np.stack(list(iq_buffers(io.BytesIO(data[: group_blocks * 262144]))))
+    bufs = np.stack(list(iq_buffers(io.BytesIO(data[: group_blocks * DATA_LEN_BYTES]))))
     xg = torch.from_numpy(bufs[:group_blocks].reshape(8, 64, -1)).to(dev)
     mc = 256
     m, n, pos = _group_front(xg, scan_len=131070, max_candidates=mc)
@@ -2271,7 +2351,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         # ---- the main path on the card vs the port's CPU run: first group ----
         first = Path(tmp) / "first_group.bin"
-        first.write_bytes(data[: group_blocks * 262144])
+        first.write_bytes(data[: group_blocks * DATA_LEN_BYTES])
         runs = {}
         for d in ("cuda", "cpu"):
             p = DemodPipeline(PipelineConfig(batch_buffers=64, dispatch_groups=8),
@@ -2309,7 +2389,7 @@ def main() -> int:
 
         # ---- the main path, counted: the file decode at full width -----------
         path = Path(tmp) / "capture.bin"
-        path.write_bytes(data[: args.groups * group_blocks * 262144])
+        path.write_bytes(data[: args.groups * group_blocks * DATA_LEN_BYTES])
         p = DemodPipeline(PipelineConfig(batch_buffers=64, dispatch_groups=8),
                           clock=lambda: NOW, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2359,8 +2439,13 @@ def main() -> int:
     if not lines or any(not (len(x) in (16, 30) and x[:1] == b"*" and x[-1:] == b";") for x in lines):
         raise AssertionError("malformed raw output")
 
-    split = stage_split(xg, shapes)
-    sus = sustained(xg, shapes, 6)
+    # the per-stage split and the sustained rate of the resident group, at
+    # the shapes the pipeline settled on, by the measurement tools' code
+    program = Group(p._mc, p._mos, p._mol)
+    split = group_stage_split(program, xg)
+    zero = torch.zeros(1024, dtype=torch.int32, device=dev)
+    sus_wall = sustained_run(program, [xg], zero, zero.clone(), t=6)["wall_s"]
+    sus = 6 * xg.shape[0] * xg.shape[1] * BLOCK_SAMPLES / sus_wall / 1e6
     samples = n_blocks * BLOCK_SAMPLES
     emit({"phase": "e2e", "groups": args.groups, "buffers": n_blocks,
           "samples": samples, "lines": len(lines), "stats": stats,
@@ -2376,16 +2461,16 @@ def main() -> int:
     # ---- the multi-capture path: K3 at its width, then the path itself ------
     k3 = resolve_streams_phase(bufs, sparse_bufs, args.seed, dev)
     del sparse_bufs
-    blocks = [data[i * 262144:(i + 1) * 262144] for i in range(16)]
+    blocks = [data[i * DATA_LEN_BYTES:(i + 1) * DATA_LEN_BYTES] for i in range(16)]
     captures_vs_cpu_phase(blocks, planted, dev)
     captures_launches, solo_launches = captures_e2e_phase(blocks, planted, dev)
 
     # ---- the CLI's hub path: verbose display, tracker, net services ---------
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         first = Path(tmp) / "first_group.bin"
-        first.write_bytes(data[: group_blocks * 262144])
+        first.write_bytes(data[: group_blocks * DATA_LEN_BYTES])
         first64 = Path(tmp) / "first_64.bin"
-        first64.write_bytes(data[: 64 * 262144])
+        first64.write_bytes(data[: 64 * DATA_LEN_BYTES])
         verbose_launches = verbose_cli_phase(first, runs["cuda"][0], planted, group_blocks,
                                              Path(tmp))
         first.unlink()
@@ -2396,18 +2481,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         tmp = Path(tmp)
         path = tmp / "capture.bin"
-        path.write_bytes(data[: args.groups * group_blocks * 262144])
+        path.write_bytes(data[: args.groups * group_blocks * DATA_LEN_BYTES])
         host_launches, host_cli_launches = host_resolve_phase(path, n_blocks, out, dev, tmp)
         path.unlink()
         first = tmp / "first_group.bin"
-        first.write_bytes(data[: group_blocks * 262144])
+        first.write_bytes(data[: group_blocks * DATA_LEN_BYTES])
         verbose_host_phase(first, tmp)
         first.unlink()
         first64 = tmp / "first_64.bin"
-        first64.write_bytes(data[: 64 * 262144])
+        first64.write_bytes(data[: 64 * DATA_LEN_BYTES])
         python_launches = host_resolve_python_phase(first64, dev)
         first16 = tmp / "first_16.bin"
-        first16.write_bytes(data[: 16 * 262144])
+        first16.write_bytes(data[: 16 * DATA_LEN_BYTES])
         debug_golden_launches = debug_golden_phase(tmp)
         debug_cpu_launches = debug_vs_cpu_phase(first16, tmp)
     captures_host_launches = captures_host_phase(blocks, planted, dev)
@@ -2416,12 +2501,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         tmp = Path(tmp)
         path = tmp / "capture.bin"
-        path.write_bytes(data[: args.groups * group_blocks * 262144])
+        path.write_bytes(data[: args.groups * group_blocks * DATA_LEN_BYTES])
         front_launches = front_variants_phase(xg, path, out, tmp)
         staged_launches = preload_phase(path, out, tmp)
         path.unlink()
         first = tmp / "first_group.bin"
-        first.write_bytes(data[: group_blocks * 262144])
+        first.write_bytes(data[: group_blocks * DATA_LEN_BYTES])
         live_launches, live_cli_launches = live_phase(data, dev, tmp)
         profile_launches = profile_phase(first, runs["cuda"][0], tmp)
         first.unlink()
@@ -2438,6 +2523,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         stdin_launches = stdin_net_phase(b"".join(blocks), dev, Path(tmp))
     snr_launches = snr_phase(dev)
+
+    # ---- the measurement tools: the benchmark, the probes, the front A/B -----
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        bench_launches, probe_launches = measure_phase(dev, Path(tmp))
 
     gather_stage_kernels_phase(args.seed)
 
@@ -2464,6 +2553,8 @@ def main() -> int:
         "soak": (soak_launches, ("gather_windows", "resolve_words")),
         "stdin": (stdin_launches, ("gather_windows", "resolve_words")),
         "snr": (snr_launches, ("gather_windows", "resolve_words")),
+        "bench": (bench_launches, ("gather_windows", "resolve_words")),
+        "measure": (probe_launches, ("gather_windows", "resolve_words")),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():
@@ -2493,9 +2584,13 @@ def main() -> int:
         # and on the stdin feed's and the SNR sweep's
         r["launches_stdin"] = stdin_launches[r["name"]]
         r["launches_snr"] = snr_launches[r["name"]]
+        # and on the benchmark's and the probes' own runs
+        r["launches_bench"] = bench_launches.get(r["name"], 0)
+        r["launches_measure"] = probe_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded",
-            "launches_fuzz", "launches_soak", "launches_stdin", "launches_snr")
+            "launches_fuzz", "launches_soak", "launches_stdin", "launches_snr",
+            "launches_bench", "launches_measure")
     emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

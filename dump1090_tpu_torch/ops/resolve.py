@@ -62,7 +62,7 @@ from .demod import (
     front_candidates,
     gather_candidate_windows,
 )
-from .magnitude import magnitude_from_iq
+from .magnitude import magnitude_from_iq, magnitude_from_pairs
 
 # ---- packed input word layout (per candidate) --------------------------------
 # pf:  pos (bits 0..16) | valid<<17 | newbuf<<18 | gate1<<19
@@ -710,11 +710,13 @@ def _mark(marks: list | None, name: str) -> None:
 def _group_front(xg: torch.Tensor, *, scan_len: int, max_candidates: int,
                  front: str | None = None):
     """Magnitudes + preamble predicate + position compaction for every
-    buffer of the group: xg uint8 (G, NB, nbytes) -> (m int32 (G*NB, S),
-    n int32 (G*NB,), pos int32 (G*NB, MC)).  `front` picks the preamble-scan
+    buffer of the group: xg uint8 (G, NB, nbytes), or the same wire bytes
+    as uint16 I|Q<<8 pairs (G, NB, nbytes/2) -> (m int32 (G*NB, S), n int32
+    (G*NB,), pos int32 (G*NB, MC)).  `front` picks the preamble-scan
     formulation (ops.demod.front_candidates; every choice bit-identical)."""
-    g_n, nb, nbytes = xg.shape
-    m = magnitude_from_iq(xg.reshape(g_n * nb, nbytes))
+    g_n, nb, width = xg.shape
+    rows = xg.reshape(g_n * nb, width)
+    m = magnitude_from_pairs(rows) if xg.dtype == torch.uint16 else magnitude_from_iq(rows)
     n, pos = front_candidates(m, scan_len, max_candidates, front)
     return m, n, pos
 
@@ -794,8 +796,9 @@ def _check_entry(x: torch.Tensor, scan_len: int, shape: str) -> None:
             f"scan_len {scan_len} exceeds the {PF_POS_MASK} packed-position "
             f"limit of the resolver word layout"
         )
-    if x.dtype != torch.uint8 or x.dim() != 3:
-        raise TypeError(f"the IQ input must be uint8 {shape}, got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in (torch.uint8, torch.uint16) or x.dim() != 3:
+        raise TypeError(f"the IQ input must be uint8 {shape} or its uint16 pairs, "
+                        f"got {x.dtype} {tuple(x.shape)}")
 
 
 def demod_resolve_group(
@@ -817,7 +820,8 @@ def demod_resolve_group(
     marks: list | None = None,
 ):
     """Device pipeline over a dispatch GROUP: xg is (G, NB, nbytes) uint8 IQ
-    on the device; every buffer is demodulated, the whole candidate stream
+    on the device, or the same wire bytes as (G, NB, nbytes/2) uint16 I|Q<<8
+    pairs (numpy `.view("<u2")`, zero-copy on the host); every buffer is demodulated, the whole candidate stream
     is resolved in ONE kernel walk (the ICAO cache and the per-buffer skip
     state chain through it in stream order), and each batch's messages are
     emitted.  Everything is enqueued without a host sync.

@@ -5,10 +5,12 @@ path with its C++ runtime, its Python twin and the --debug dumps, the
 packed fronts and live buffers through run_source_device and run_source,
 the sharded decode's worker and --tpu-shard-time) with both made
 unimportable, and its entry points, the live CLI, the sharded decode, the
-worker and every tool of dump1090_tpu_torch/tools/ that decodes IQ among
-them, refuse to fall back to the CPU when no card is present.  Nor does it import the JAX
-package's tools or put their directory on sys.path, and the tools run with
-jax, the JAX package and the JAX tools' modules made unimportable."""
+worker and every tool of dump1090_tpu_torch/tools/ that decodes IQ (the
+measurement tools bench, measure and exp_demod_front among them), refuse
+to fall back to the CPU when no card is present.  Nor does it import the
+JAX package's tools (tools/*.py, the root's bench.py) or put their
+directory on sys.path, and the tools run with jax, the JAX package and the
+JAX tools' modules made unimportable."""
 
 import ast
 import os
@@ -26,6 +28,9 @@ TOOLS = ("fuzz_diff", "soak_device", "snr_sweep", "net_capture", "fuzz_hex", "sw
          "http_diff", "netdebug_diff", "gen_cpr_vectors", "refbuild")
 # the tools that decode IQ and so take --device (the others need no card)
 CARD_TOOLS = TOOLS[:4]
+# the measurement tools: ports of the root's bench.py and of tools/measure.py
+# and tools/exp_demod_front.py, with their inputs in air.py; all take --device
+MEASURE_TOOLS = ("bench", "measure", "exp_demod_front")
 
 
 def _imported_modules(path: Path):
@@ -41,9 +46,11 @@ def _imported_modules(path: Path):
 def test_no_file_imports_jax_or_the_jax_package():
     files = sorted((REPO / "dump1090_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and REPO / "dump1090_tpu_torch" / "io" / "rtlsdr.py" in files
-    assert {REPO / "dump1090_tpu_torch" / "tools" / f"{t}.py" for t in TOOLS} <= set(files)
-    # nor the JAX package's tools (tools/*.py, imported by their file names)
-    jax_tools = {p.stem for p in (REPO / "tools").glob("*.py")}
+    assert {REPO / "dump1090_tpu_torch" / "tools" / f"{t}.py"
+            for t in TOOLS + MEASURE_TOOLS + ("air",)} <= set(files)
+    # nor the JAX package's tools (tools/*.py and the root's bench.py,
+    # imported by their file names)
+    jax_tools = {p.stem for p in (REPO / "tools").glob("*.py")} | {"bench"}
     assert set(TOOLS) <= jax_tools
     for f in files:
         assert "sys.path" not in f.read_text(), f"{f.relative_to(REPO)} edits sys.path"
@@ -209,32 +216,46 @@ def test_entry_points_refuse_cpu_fallback_without_a_card():
     assert r.returncode == 1 and b"no CUDA device" in r.stderr and r.stdout == b""
     # every tool that decodes IQ: the card is asked for before any work
     flags = {"fuzz_diff": ["--n", "1"], "soak_device": ["--wall-minutes", "1"],
-             "net_capture": ["--ours", "--iq", "x", "--out-raw", "y", "--out-sbs", "z"]}
+             "net_capture": ["--ours", "--iq", "x", "--out-raw", "y", "--out-sbs", "z"],
+             "measure": ["--probe", "link"], "exp_demod_front": ["--check"]}
     procs = {t: subprocess.Popen([sys.executable, "-m", f"dump1090_tpu_torch.tools.{t}",
                                   *flags.get(t, [])], cwd=REPO, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE) for t in CARD_TOOLS}
+                                 stderr=subprocess.PIPE) for t in CARD_TOOLS + MEASURE_TOOLS}
     for tool, p in procs.items():
         out, err = p.communicate(timeout=120)
         assert p.returncode != 0 and b"no CUDA device" in err and out == b"", tool
 
 
 def test_tools_run_with_jax_and_the_jax_tools_unimportable(tmp_path):
-    """The sweep, the CPR vectors and the hex stream of the tools run on
-    --device cpu with jax, the JAX package and every JAX tool's module name
-    made unimportable, and none of them enters sys.modules."""
-    jax_tools = sorted(p.stem for p in (REPO / "tools").glob("*.py"))
+    """The sweep, the CPR vectors, the hex stream, the benchmark, a probe and
+    the front A/B of the tools run on --device cpu with jax, the JAX package
+    and every JAX tool's module name (the root's bench.py among them) made
+    unimportable, and none of them enters sys.modules."""
+    jax_tools = sorted(p.stem for p in (REPO / "tools").glob("*.py")) + ["bench"]
+    air = tmp_path / "air.bin"
     code = f"""
-import contextlib, io, sys
+import contextlib, io, json, sys
 for name in ["jax", "dump1090_tpu", *{jax_tools!r}]:
     sys.modules[name] = None
-from dump1090_tpu_torch.tools import (fuzz_hex, gen_cpr_vectors, http_diff, net_capture,
-                                      netdebug_diff, refbuild, snr_sweep, sweep_hex)
+from dump1090_tpu_torch.tools import (bench, exp_demod_front, fuzz_hex, gen_cpr_vectors,
+                                      http_diff, measure, net_capture, netdebug_diff,
+                                      refbuild, snr_sweep, sweep_hex)
+from dump1090_tpu_torch.utils.synth import planted_capture
+open({str(air)!r}, "wb").write(planted_capture(1, 20, seed=3)[0])
+small = ["--device", "cpu", "--input", {str(air)!r}, "--nb", "1", "--loops", "1"]
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
     assert snr_sweep.main(["--device", "cpu", "--frames", "10", "--snrs", "20"]) == 0
     assert gen_cpr_vectors.main([]) == 0
+    assert bench.main(small + ["--g", "1", "--w", "1", "--t", "1", "--cold-mb", "0"]) == 0
+    assert measure.main(small + ["--probe", "steady", "--g", "1", "--t", "1"]) == 0
+    assert exp_demod_front.main(small + ["--check"]) == 0
 assert "| 20 | 100.0% | 100.0% |" in out.getvalue(), out.getvalue()
 assert out.getvalue().count("\\nA ") > 1000
+recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{{")]
+assert [r.get("metric") or r.get("probe") or r.get("tool") for r in recs] \\
+    == ["sustained_e2e", "steady", "exp_demod_front"], recs
+assert all(r["device"]["platform"] == "cpu" for r in recs)
 import numpy as np
 assert fuzz_hex.gen_stream(np.random.default_rng(0), 50).count(b"\\n") >= 50
 assert len(sweep_hex.SWEEPS) == 9 and http_diff.scenario()
