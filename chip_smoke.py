@@ -1770,9 +1770,10 @@ FUZZ_MODES = ("device", "device-nofix", "device-aggressive", "raw", "sharded-dev
 def kernel_inputs(pick):
     """Record K1's and K2's inputs on the pipeline's dispatch path
     (ops.demod.gather_row_windows, ops.resolve.resolve_words) while the
-    block runs.  pick(kind, mc) names the record a call belongs to (kind
-    "k1" or "k2", mc its candidate slots a buffer), or None; a name keeps
-    the tensors (cloned before the call) of the last call given it.
+    block runs.  pick(kind, mc, n) names the record a call belongs to (kind
+    "k1" or "k2", mc its candidate slots a buffer, n K1's rows or K2's
+    slots), or None; a name keeps the tensors (cloned before the call) of
+    the last call given it.
     Yields {(name, kind): (args, kwargs)}; thread-safe, for the soak's
     planes."""
     import threading
@@ -1784,7 +1785,7 @@ def kernel_inputs(pick):
 
     def wrap(kind, mc_of):
         def call(*a, **k):
-            name = pick(kind, mc_of(a))
+            name = pick(kind, mc_of(a), a[0].shape[0])
             if name is not None:
                 kept = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
                 with lock:
@@ -1868,7 +1869,7 @@ def fuzz_phase(seed: int, dev: torch.device, n: int = 24) -> dict:
         card_s[mode] += time.perf_counter() - t0
         per_mode[mode].update({k: _cuda.launches[k] - before[k] for k in before})
 
-    def pick(kind, mc):
+    def pick(kind, mc, n):
         k = on_card["stream"]
         return f"recipe{k}" if on_card["mode"] == "device" and k < fuzz_diff.RECIPES else None
 
@@ -1940,7 +1941,7 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
 
     stage = {}  # (plane, kind) -> "shrunk" from the first dispatch at 64, then "regrown"
 
-    def pick(kind, mc):
+    def pick(kind, mc, n):
         plane = threading.current_thread().name.removeprefix("soak-")
         at = stage.get((plane, kind))
         if mc == 64 and at is None:
@@ -2071,7 +2072,7 @@ def stdin_net_phase(iq: bytes, dev: torch.device, tmp: Path) -> dict:
     stdin, real_stdin = _Stdin(iq), sys.stdin
     pl.demod_resolve_group, sys.stdin = dispatch, stdin
     try:
-        with kernel_inputs(lambda kind, mc: "stdin") as rec:
+        with kernel_inputs(lambda kind, mc, n: "stdin") as rec:
             torch.cuda.synchronize()
             _cuda.reset_launches()
             t0 = time.perf_counter()
@@ -2121,7 +2122,7 @@ def snr_phase(dev: torch.device, frames: int = 200) -> dict:
 
     at = {"snr": None, "resolve": None}
 
-    def pick(kind, mc):
+    def pick(kind, mc, n):
         return f"snr12/{at['resolve']}" if at["snr"] == 12 and at["resolve"] else None
 
     table, card_s, cpu_s = [], collections.Counter(), 0.0
@@ -2230,15 +2231,25 @@ def _call_tool(main, argv: list, name: str) -> tuple:
     return _tool_record(out.getvalue(), name), time.perf_counter() - t0
 
 
-def measure_phase(dev: torch.device, tmp: Path, probe_nb: int = 128) -> tuple:
+def measure_phase(dev: torch.device, tmp: Path, probe_nb: int = 64) -> tuple:
     """The measurement tools on the card: tools.bench in full (its own
     process: the upload probe comes before any kernel, the cold file
-    first), the bench's first group against DemodPipeline.stream_raw_device
-    over the same buffers (byte-equal, every planted frame of at most one
-    flipped bit among its lines), each probe of tools.measure once at its defaults (--nb
-    probe_nb), and exp_demod_front --check --time.  Every tool must exit 0
-    on the card with every share in [0, 1].  Returns the launches of the
-    bench and of the probes, each counted in the tool's own run."""
+    first); then the bench's shapes in this process with K1's and K2's
+    inputs recorded: its resident groups through its sustained run with
+    the cache chained (the first group, from a fresh cache, against
+    DemodPipeline.stream_raw_device over the same buffers: byte-equal,
+    every planted frame of at most one flipped bit among its lines), its
+    fused batch and its sparse batch.  Then each probe of tools.measure once
+    at its defaults but for --nb probe_nb (the tools' 128 halved to keep
+    the script inside half its time limit), and exp_demod_front --check
+    --time.  Every tool must exit 0 on the card with every share in
+    [0, 1].  K1's and K2's inputs of the probes' shapes are recorded in
+    short reruns of `steady` (the group at the probes' shapes, the cache
+    chained; the `ab-*` and `trace` probes run the same shapes) and `scan`
+    (K2's walk at each length), so that the clones stay out of the probes'
+    timings; every recorded call is held against the kernels' plain
+    versions.  Returns the launches of the bench and of the probes, each
+    counted in the tool's own run."""
     from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
     from dump1090_tpu_torch.tools import air, bench, exp_demod_front, measure
 
@@ -2248,16 +2259,40 @@ def measure_phase(dev: torch.device, tmp: Path, probe_nb: int = 128) -> tuple:
     bench_launches = rec["launches"]
     emit({"phase": "measure_bench", "seconds": secs, **rec})
 
-    # the bench's first group, formatted by its sustained run, against the
-    # product file decode of the same buffers (fresh cache, same clock)
+    # the bench's shapes in this process, K1's and K2's inputs recorded:
+    # its two groups with the cache chained as its sustained run chains
+    # it, then its fused batch and its sparse batch
     raw, planted = air.planted_air()
     nb, g = bench.NB, bench.G
-    x = bench.upload_groups(air.bench_groups(raw, nb, g, 1), dev)[0]
-    program = bench.Group(bench.MC, bench.MOS, bench.MOL)
-    program.fit(x)
+    groups = bench.upload_groups(air.bench_groups(raw, nb, g, bench.W), dev)
+    program = bench.Group()
+    program.fit(groups[0])
     zero = torch.zeros(1024, dtype=torch.int32, device=dev)
-    got = bench.sustained_run(program, [x], zero, zero.clone(), t=1, keep=True)["raw"][0]
-    del x
+    at = {"where": None}
+    with kernel_inputs(lambda kind, mc, n: at["where"]) as rec_b:
+        at["where"] = "bench_group"
+        run = bench.sustained_run(program, groups, zero, zero.clone(), t=len(groups) + 1,
+                                  keep=True)
+        x16 = groups[0][0]
+        at["where"] = "bench_fused"
+        bench.fused_loop(x16, run["ca"], run["ct"], 2, mc=program.mc, mos=program.mos,
+                         mol=program.mol)
+        at["where"] = "bench_sparse"
+        xs = torch.from_numpy(air.sparse_batch(nb, 2 * x16.shape[1])).to(dev)
+        bench.fused_loop(xs, run["ca"], run["ct"], 2, mc=bench.SPARSE_MC,
+                         mos=bench.SPARSE_OUT, mol=bench.SPARSE_OUT)
+        torch.cuda.synchronize()
+    del groups, x16, xs
+    want = {(w, k) for w in ("bench_group", "bench_fused", "bench_sparse") for k in ("k1", "k2")}
+    if set(rec_b) != want:
+        raise AssertionError(f"bench: K1's and K2's inputs not recorded: {sorted(rec_b)}")
+    kernels_bench = check_kernel_inputs(rec_b, "bench")
+    del rec_b
+    torch.cuda.empty_cache()
+
+    # the bench's first group, formatted by its sustained run, against the
+    # product file decode of the same buffers (fresh cache, same clock)
+    got = run["raw"][0]
     path = tmp / "bench_group.bin"
     reps = -(-nb * g * DATA_LEN_BYTES // len(raw))
     path.write_bytes(np.tile(raw, reps)[: nb * g * DATA_LEN_BYTES].tobytes())
@@ -2277,7 +2312,8 @@ def measure_phase(dev: torch.device, tmp: Path, probe_nb: int = 128) -> tuple:
                              "bench's first group")
     emit({"phase": "measure_bench_group", "buffers": nb * g, "raw_equal_stream_raw_device": True,
           "lines": len(got.split()), "planted_found": len(fixable),
-          "shapes": {"mc": program.mc, "mos": program.mos, "mol": program.mol}})
+          "shapes": {"mc": program.mc, "mos": program.mos, "mol": program.mol},
+          "kernels_at_bench": kernels_bench})
 
     probe_launches = collections.Counter()
     nb_arg = ["--nb", str(probe_nb)]
@@ -2293,6 +2329,26 @@ def measure_phase(dev: torch.device, tmp: Path, probe_nb: int = 128) -> tuple:
     rec, secs = _call_tool(exp_demod_front.main, ["--check", "--time", *nb_arg],
                            "exp_demod_front")
     emit({"phase": "measure_exp_demod_front", "seconds": secs, **rec})
+
+    at = {"probe": None}
+
+    def pick(kind, mc, n):
+        return f"scan_n{n}" if at["probe"] == "scan" and kind == "k2" else at["probe"]
+
+    t0 = time.perf_counter()
+    with kernel_inputs(pick) as rec_m:
+        for probe, short in (("steady", ["--t", "2"]), ("scan", ["--loops", "2"])):
+            at["probe"] = probe
+            _call_tool(measure.main, ["--probe", probe, *nb_arg, *short], probe)
+        torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    walks = {min(n, probe_nb * bench.MC) for n in (2048, 8192, 32768)}
+    want = ({("steady", "k1"), ("steady", "k2"), ("scan", "k1")}
+            | {(f"scan_n{n}", "k2") for n in walks})
+    if set(rec_m) != want:
+        raise AssertionError(f"measure: K1's and K2's inputs not recorded: {sorted(rec_m)}")
+    emit({"phase": "measure_probe_kernels", "rerun_s": rerun_s,
+          "kernels_at_probes": check_kernel_inputs(rec_m, "measure")})
     return bench_launches, dict(probe_launches)
 
 
@@ -2312,7 +2368,7 @@ def main() -> int:
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.ops.resolve import _group_front, _group_precompute
     from dump1090_tpu_torch.tools.bench import Group, sustained_run
-    from dump1090_tpu_torch.tools.measure import group_stage_split
+    from dump1090_tpu_torch.tools.measure import group_stage_split, sustained
     from dump1090_tpu_torch.utils.synth import planted_capture
 
     dev = torch.device("cuda", 0)
@@ -2440,12 +2496,15 @@ def main() -> int:
         raise AssertionError("malformed raw output")
 
     # the per-stage split and the sustained rate of the resident group, at
-    # the shapes the pipeline settled on, by the measurement tools' code
+    # the shapes the pipeline settled on, by the measurement tools' code:
+    # sustained_msps fetches every group with three in flight and formats
+    # none; sustained_formatted_msps adds the bench's formatting worker
     program = Group(p._mc, p._mos, p._mol)
     split = group_stage_split(program, xg)
+    sus, _ = sustained(program, [xg], 6, depth=3)
     zero = torch.zeros(1024, dtype=torch.int32, device=dev)
     sus_wall = sustained_run(program, [xg], zero, zero.clone(), t=6)["wall_s"]
-    sus = 6 * xg.shape[0] * xg.shape[1] * BLOCK_SAMPLES / sus_wall / 1e6
+    sus_formatted = 6 * xg.shape[0] * xg.shape[1] * BLOCK_SAMPLES / sus_wall / 1e6
     samples = n_blocks * BLOCK_SAMPLES
     emit({"phase": "e2e", "groups": args.groups, "buffers": n_blocks,
           "samples": samples, "lines": len(lines), "stats": stats,
@@ -2453,7 +2512,8 @@ def main() -> int:
           "file_msps": samples / wall / 1e6, "warm_wall_s": warm_wall,
           "warm_file_msps": samples / warm_wall / 1e6, "ingest_s": ingest_s,
           "read_and_frame_s": frame_s, "framed_buffers": n_framed,
-          "sustained_msps": sus, "stage_ms_per_group": split,
+          "sustained_msps": sus, "sustained_formatted_msps": sus_formatted,
+          "stage_ms_per_group": split,
           "gather_stage_ms": {"two_step": k1["two_step_ms"], "fused": split["gather"]},
           "peak_device_bytes": peak, "settled_shapes": shapes,
           "groups_replayed": launches["resolve_words"] - args.groups})

@@ -3,8 +3,7 @@ card (a port of the repository root's bench.py, the `sustained_e2e`
 protocol).
 
     python -m dump1090_tpu_torch.tools.bench [--device cuda] [--input FILE]
-        [--nb 128 --g 12 --w 2 --t 8 --mc 256 --mos 5632 --mol 9216 --depth 3]
-        [--cold-mb 857] [--loops N]
+        [--nb 128 --g 12 --w 2 --t 8 --mol 9216] [--cold-mb 857] [--loops N]
 
 Prints ONE JSON line on stdout; the detail goes to stderr:
   {"metric": "sustained_e2e", "value": N, "unit": "Msamples/s/chip",
@@ -89,6 +88,7 @@ NOW = 1_700_000_000                # the decode clock of every resident group
 NB, G, W, T, MC, MOS, MOL, DEPTH = 128, 12, 2, 8, 256, 5632, 9216, 3
 COLD_MB = 857                      # bench.py's cold file: about 857 MB
 SPARSE_MC = 64
+SPARSE_OUT = 2048                  # short and long rows a sparse batch
 
 
 def log(msg: str) -> None:
@@ -341,26 +341,32 @@ class Group:
 
 
 def sustained_run(program: Group, groups: list, ca, ct, *, t: int, depth: int = DEPTH,
-                  keep: bool = False) -> dict:
+                  keep: bool = False, formatted: bool = True) -> dict:
     """t groups (groups cycled) with `depth` in flight: dispatch g+depth,
-    fetch g on this thread, format it on one worker thread.  The cache
+    fetch g on this thread, format it on one worker thread (with formatted
+    False, only its message counts summed, on this thread).  The cache
     chains through every group.  Returns wall seconds (ending in a
     synchronize), messages, raw bytes, the cache after the last group and,
     with keep, each group's raw bytes in order."""
     dev = groups[0].device
     pending: collections.deque = collections.deque()
-    futures = []
+    done = []
     sync(dev)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
+        def finish(fetch):
+            host = program.fetch(fetch)
+            done.append(pool.submit(Group.format, host) if formatted
+                        else (int(host[1].sum()), b""))
+
         for k in range(t):
             fetch, ca, ct = program.dispatch(groups[k % len(groups)], ca, ct)
             pending.append(fetch)
             if len(pending) > depth:
-                futures.append(pool.submit(Group.format, program.fetch(pending.popleft())))
+                finish(pending.popleft())
         while pending:
-            futures.append(pool.submit(Group.format, program.fetch(pending.popleft())))
-        done = [f.result() for f in futures]
+            finish(pending.popleft())
+        done = [d.result() if formatted else d for d in done]
     sync(dev)
     wall = time.perf_counter() - t0
     res = {"wall_s": wall, "messages": sum(c for c, _ in done),
@@ -417,7 +423,7 @@ def run(args, dev: torch.device) -> dict:
     """bench.py's phases in its order; returns the record."""
     from ..ops import _cuda
 
-    nb, g, w, t, mc, mos, mol = args.nb, args.g, args.w, args.t, args.mc, args.mos, args.mol
+    nb, g, w, t, mc, mos, mol = args.nb, args.g, args.w, args.t, MC, MOS, args.mol
     mem = PeakMemory(dev)
     _cuda.reset_launches()
 
@@ -461,7 +467,7 @@ def run(args, dev: torch.device) -> dict:
     env_before = smi_env()
     best = None
     for _ in range(3):
-        r = sustained_run(program, groups, ca, ct, t=t, depth=args.depth)
+        r = sustained_run(program, groups, ca, ct, t=t)
         ca, ct = r["ca"], r["ct"]
         if best is None or r["wall_s"] < best["wall_s"]:
             best = r
@@ -505,7 +511,8 @@ def run(args, dev: torch.device) -> dict:
     mem.start()
     xs = torch.from_numpy(air.sparse_batch(nb, x.shape[1])).to(dev)
     t_d = best_per_call(lambda: demod_loop(xs, ls, SPARSE_MC), dev, ls)
-    t_f = best_per_call(lambda: fused_loop(xs, ca, ct, ls, mc=SPARSE_MC, mos=2048, mol=2048),
+    t_f = best_per_call(lambda: fused_loop(xs, ca, ct, ls, mc=SPARSE_MC, mos=SPARSE_OUT,
+                                           mol=SPARSE_OUT),
                         dev, ls)
     mem.end("sparse")
     sparse = {"mc": SPARSE_MC, "frames_per_buffer": 3, "demod_ms": t_d * 1e3,
@@ -522,7 +529,7 @@ def run(args, dev: torch.device) -> dict:
         "device": device_record(dev),
         "input": str(args.input) if args.input else "planted air (utils/synth.py, seed 1)",
         "shapes": {"nb": nb, "g": g, "w": w, "t": t, "mc": mc, "mos": mos, "mol": mol,
-                   "depth": args.depth},
+                   "depth": DEPTH},
         "messages": best["messages"], "raw_bytes": best["raw_bytes"],
         "emission_peaks": dict(program.peaks),
         "h2d_gbps": h2d, "resident_upload_gbps": bytes_in / t_h2d / 1e9,
@@ -584,10 +591,7 @@ def main(argv=None) -> int:
                     help="uint8 IQ capture (default: the planted dense air)")
     for name, val, what in (("nb", NB, "buffers a batch"), ("g", G, "batches a group"),
                             ("w", W, "distinct resident groups"), ("t", T, "timed groups"),
-                            ("mc", MC, "candidates a buffer"),
-                            ("mos", MOS, "short frames a batch"),
                             ("mol", MOL, "long frames a batch"),
-                            ("depth", DEPTH, "groups in flight"),
                             ("cold-mb", COLD_MB, "cold file size; 0 skips the phase")):
         ap.add_argument(f"--{name}", type=int, default=val, help=f"{what} (default {val})")
     ap.add_argument("--loops", type=int, default=0,

@@ -68,14 +68,13 @@ from .bench import (
     NOW,
     SCAN_LEN,
     Group,
+    _consume,
     best_per_call,
     device_record,
+    log,
+    sustained_run,
     sync,
 )
-
-
-def log(m: str) -> None:
-    print(m, flush=True)
 
 
 def buffers(args, n: int) -> np.ndarray:
@@ -98,22 +97,13 @@ def msps(groups: int, g: int, nb: int, seconds: float) -> float:
 
 def sustained(program: Group, groups: list, t: int, depth: int = 1) -> tuple[float, int]:
     """(Msamples/s, messages) of t groups with `depth` in flight, each
-    fetched, its counts summed; a fresh cache."""
+    fetched, its counts summed, none formatted (bench.sustained_run); a
+    fresh cache."""
     dev = groups[0].device
     ca = torch.zeros(1024, dtype=torch.int32, device=dev)
-    ct = torch.zeros(1024, dtype=torch.int32, device=dev)
-    q, tot = collections.deque(), 0
-    sync(dev)
-    t0 = time.perf_counter()
-    for k in range(t):
-        fetch, ca, ct = program.dispatch(groups[k % len(groups)], ca, ct)
-        q.append(fetch)
-        if len(q) > depth:
-            tot += int(program.fetch(q.popleft())[1].sum())
-    while q:
-        tot += int(program.fetch(q.popleft())[1].sum())
+    r = sustained_run(program, groups, ca, ca.clone(), t=t, depth=depth, formatted=False)
     g, nb = groups[0].shape[:2]
-    return msps(t, g, nb, time.perf_counter() - t0), tot
+    return msps(t, g, nb, r["wall_s"]), r["messages"]
 
 
 def interleaved(runs: dict, t: int, reps: int = 3) -> dict:
@@ -241,10 +231,6 @@ def probe_scan(args) -> dict:
 # ---------------------------------------------------------------------------
 # front: the full demod_batch over the front formulations
 # ---------------------------------------------------------------------------
-
-def _consume(fields) -> torch.Tensor:
-    return sum(f.to(torch.int32).sum(dtype=torch.int32) for f in fields)
-
 
 def probe_front(args) -> dict:
     from ..ops.demod import demod_batch

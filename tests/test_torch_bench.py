@@ -27,6 +27,7 @@ from jax import lax
 
 from dump1090_tpu_torch.tools import air
 from dump1090_tpu_torch.tools import bench as tbench
+from dump1090_tpu_torch.tools import measure as tmeasure
 
 REPO = Path(__file__).resolve().parent.parent
 NB, G, W, T = 2, 2, 2, 3
@@ -199,6 +200,12 @@ def test_sustained_run_equals_chained_jax_groups(capture):
     assert res["messages"] == n_msgs > 0 and res["raw_bytes"] == sum(map(len, want))
     np.testing.assert_array_equal(res["ca"].numpy(), np.asarray(ca))
     np.testing.assert_array_equal(res["ct"].numpy(), np.asarray(ct))
+    # unformatted (measure.sustained's protocol): the same messages counted
+    # and the same cache, no bytes
+    bare = tbench.sustained_run(program, groups, z, z.clone(), t=T, depth=1, formatted=False)
+    assert bare["messages"] == n_msgs and bare["raw_bytes"] == 0
+    np.testing.assert_array_equal(bare["ca"].numpy(), np.asarray(ca))
+    assert tmeasure.sustained(program, groups, T, depth=3)[1] == n_msgs
     # the first group covers the first G*NB blocks of the tiled air; each
     # frame planted there with at most one flipped bit comes out clean
     lines = set(res["raw"][0].split())
