@@ -78,6 +78,17 @@ capture, checking what comes out:
     from -2 to 20 dB, 200 frames each, decoded with the resolver on the
     card, on the host, and on the CPU: equal recovered sets, every frame
     at 20 dB, phase-corrected frames at 11 and 12 dB);
+  * the fixed-reps soak (`reps_soak`: tools/soak_device.py's default mode
+    over the planted blocks tiled to 288 buffers (two full dispatch groups
+    of 16 x 8 buffers and a partial one), in a process of its own against
+    the port's CPU CLI as the oracle: SOAK PASS; its cold and warm passes
+    again in this process, K1's and K2's inputs held against their plain
+    versions at a full group on an empty ICAO cache, at a full group on
+    the cache chained from the group before, and at the partial group; the
+    CLI's --raw --tpu-device-resolve off with and without
+    DUMP1090_TPU_NO_NATIVE=1, each run counted on its own, the hub path
+    against the native bulk path, byte-equal; and uint16 magnitudes
+    against int32);
   * the measurement tools (`measure`: tools/bench.py's sustained_e2e
     protocol in full in a process of its own; the bench's first group of
     1,536 buffers, formatted by its sustained run, byte-equal to
@@ -2175,6 +2186,121 @@ def snr_phase(dev: torch.device, frames: int = 200) -> dict:
     return launches
 
 
+# the fixed-reps soak's input: the planted blocks tiled to two full dispatch
+# groups of the mode (16 x 8 buffers) and a partial one
+REPS_BUFFERS = 288
+
+
+def reps_soak_phase(data: bytes, dev: torch.device, tmp: Path) -> dict:
+    """The fixed-reps soak (dump1090_tpu_torch.tools.soak_device's default
+    mode) on the card: the planted capture tiled to REPS_BUFFERS buffers
+    (75.5 MB), `--reps 1 --device cuda` in a process of its own, against
+    the port's CPU CLI as the oracle (this machine has no reference binary
+    and no JAX): SOAK PASS and exit 0.  Then, counted, the tool's two passes
+    (cold, warm: equal) in this process at its --batch 16 --groups 8 with
+    K1's and K2's inputs recorded at every dispatch; held against their
+    plain versions are the first (a full group, the cache empty), the last
+    full group whose cache holds entries (chained from the group before)
+    and the last dispatch (the partial group).  Then the --raw
+    --tpu-device-resolve off CLI on the card with and without
+    DUMP1090_TPU_NO_NATIVE=1, the counts set to 0 before each run (the
+    per-message hub path against the native bulk path: byte-equal, and
+    equal to the soak's bytes); and the magnitudes of the first buffer as
+    uint16 against int32.  Returns the launches of the soak's passes and
+    of each CLI run, by run."""
+    import os
+    import shlex
+
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.magnitude import magnitude_from_iq
+    from dump1090_tpu_torch.tools import soak_device
+
+    t0 = time.perf_counter()
+    capture = tmp / "reps_input.bin"
+    capture.write_bytes(data[: REPS_BUFFERS * DATA_LEN_BYTES])
+    oracle = shlex.join([sys.executable, "-m", "dump1090_tpu_torch", "--device", "cpu"])
+    r = subprocess.run(
+        [sys.executable, "-m", "dump1090_tpu_torch.tools.soak_device", "--reps", "1",
+         "--input", str(capture), "--device", "cuda", "--ref", oracle],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    tool_s = time.perf_counter() - t0
+    if r.returncode != 0 or "SOAK PASS" not in r.stdout:
+        raise AssertionError(f"the fixed-reps soak exited {r.returncode}: "
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    tool_lines = {k: next(ln for ln in (r.stdout + r.stderr).splitlines() if ln.startswith(k))
+                  for k in ("SOAK PASS", "warm pass", "reference")}
+
+    stream = np.fromfile(capture, np.uint8)
+    batch, groups = 16, soak_device.parser().get_default("groups")
+    calls = collections.Counter()
+
+    def pick(kind, mc, n):
+        calls[kind] += 1
+        return calls[kind]
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with kernel_inputs(pick) as rec:
+        res = soak_device.reps_passes(stream, batch, groups, dev)
+    launches = dict(_cuda.launches)
+    if res["warm_raw"] != res["raw"] or not res["raw"]:
+        raise AssertionError("reps_soak: the warm pass differs from the cold pass, or is empty")
+    dispatches = sorted({i for i, _ in rec})
+    if set(rec) != {(i, k) for i in dispatches for k in ("k1", "k2")}:
+        raise AssertionError(f"reps_soak: K1's and K2's inputs not recorded: {sorted(rec)}")
+    rows = {i: rec[(i, "k1")][0][0].shape[0] for i in dispatches}
+    chained = [i for i in dispatches
+               if rows[i] == batch * groups and bool((rec[(i, "k2")][0][5] != 0).any())]
+    if rows[dispatches[0]] != batch * groups or not chained:
+        raise AssertionError(f"reps_soak: no full group, or none on a chained cache: {rows}")
+    at = {"reps_first_group": dispatches[0], "reps_chained_group": chained[-1],
+          "reps_last_dispatch": dispatches[-1]}
+    kernels = check_kernel_inputs({(name, k): rec[(i, k)] for name, i in at.items()
+                                   for k in ("k1", "k2")}, "reps_soak")
+    del rec
+    if kernels["reps_chained_group"]["k2"]["cache_valid"] < 1:
+        raise AssertionError("reps_soak: K2 was not held on a chained ICAO cache")
+
+    outs, cli_s, err, cli_launches = {}, {}, {}, {}
+    for name in ("native", "no_native"):
+        out = tmp / f"reps_{name}.txt"
+        if name == "no_native":
+            os.environ["DUMP1090_TPU_NO_NATIVE"] = "1"
+        try:
+            log = io.StringIO()
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            with contextlib.redirect_stderr(log):
+                cli_s[name] = run_cli(["--ifile", str(capture), "--raw",
+                                       "--tpu-device-resolve", "off"], out)
+            cli_launches[name] = dict(_cuda.launches)
+            err[name] = log.getvalue()
+        finally:
+            os.environ.pop("DUMP1090_TPU_NO_NATIVE", None)
+        outs[name] = out.read_bytes()
+    if "DUMP1090_TPU_NO_NATIVE" not in err["no_native"] or "native runtime" in err["native"]:
+        raise AssertionError(f"reps_soak: the CLI did not take the expected host path: {err}")
+    if not outs["native"] == outs["no_native"] == res["raw"]:
+        raise AssertionError("reps_soak: the CLI's --raw with DUMP1090_TPU_NO_NATIVE=1 differs "
+                             "from the native run or from the soak's bytes")
+
+    x = torch.from_numpy(stream[:DATA_LEN_BYTES]).to(dev)
+    m16 = magnitude_from_iq(x, out_dtype=torch.uint16)
+    if m16.dtype != torch.uint16 or max_abs_err(m16.view(torch.int16).to(torch.int32) & 0xFFFF,
+                                                magnitude_from_iq(x)):
+        raise AssertionError("reps_soak: uint16 magnitudes differ from the int32 ones on the card")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "reps_soak", "seconds": seconds, "buffers": REPS_BUFFERS,
+          "bytes": int(stream.nbytes), "tool_s": tool_s, "tool": tool_lines,
+          "lines": len(res["raw"].splitlines()), "cold_s": res["cold_s"],
+          "warm_s": res["warm_s"], "warm_msps": res["samples"] / res["warm_s"] / 1e6,
+          "launches": launches, "dispatch_rows": [rows[i] for i in dispatches],
+          "kernels_at_reps": {name: {"dispatch": at[name], **k} for name, k in kernels.items()},
+          "no_native_equal": True, "cli_s": cli_s, "cli_launches": cli_launches,
+          "uint16_magnitudes_equal": True})
+    return launches, cli_launches
+
+
 # the probes that measure a fresh process (the link before the first
 # kernel, the first dispatch's load) or run the profiler (which a session
 # earlier in a process disturbs, gather_stage_kernels) get one of their own
@@ -2584,6 +2710,10 @@ def main() -> int:
         stdin_launches = stdin_net_phase(b"".join(blocks), dev, Path(tmp))
     snr_launches = snr_phase(dev)
 
+    # ---- the fixed-reps soak, DUMP1090_TPU_NO_NATIVE ----------------------------
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
+        reps_launches, reps_cli_launches = reps_soak_phase(data, dev, Path(tmp))
+
     # ---- the measurement tools: the benchmark, the probes, the front A/B -----
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
         bench_launches, probe_launches = measure_phase(dev, Path(tmp))
@@ -2613,6 +2743,9 @@ def main() -> int:
         "soak": (soak_launches, ("gather_windows", "resolve_words")),
         "stdin": (stdin_launches, ("gather_windows", "resolve_words")),
         "snr": (snr_launches, ("gather_windows", "resolve_words")),
+        "reps_soak": (reps_launches, ("gather_windows", "resolve_words")),
+        "reps_native_cli": (reps_cli_launches["native"], ("gather_windows",)),
+        "reps_no_native_cli": (reps_cli_launches["no_native"], ("gather_windows",)),
         "bench": (bench_launches, ("gather_windows", "resolve_words")),
         "measure": (probe_launches, ("gather_windows", "resolve_words")),
     }
@@ -2644,13 +2777,15 @@ def main() -> int:
         # and on the stdin feed's and the SNR sweep's
         r["launches_stdin"] = stdin_launches[r["name"]]
         r["launches_snr"] = snr_launches[r["name"]]
+        # and on the fixed-reps soak's passes
+        r["launches_reps"] = reps_launches.get(r["name"], 0)
         # and on the benchmark's and the probes' own runs
         r["launches_bench"] = bench_launches.get(r["name"], 0)
         r["launches_measure"] = probe_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded",
             "launches_fuzz", "launches_soak", "launches_stdin", "launches_snr",
-            "launches_bench", "launches_measure")
+            "launches_reps", "launches_bench", "launches_measure")
     emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,8 @@ the previous buffer, the EOF buffer is signaled-but-never-decoded — unless it
 is the *first* buffer, which the decoder is already blocked waiting for
 (dump1090.c:2969-2971).  We reproduce that: the padded EOF buffer is yielded
 only when it is the first.  (For a reader slower than the decoder — a
-trickling stdin pipe — the reference would racily decode the final buffer.)
+trickling stdin pipe — the reference would racily decode the final buffer;
+pass `decode_eof_buffer=True` to get that behavior.)
 """
 
 from __future__ import annotations
@@ -35,15 +36,25 @@ CARRY_BYTES = CARRY_SAMPLES * 2          # 476
 BUF_BYTES = DATA_LEN_BYTES + CARRY_BYTES  # 262620
 
 
-def iq_buffers(stream: BinaryIO, loop: bool = False, throttle_s: float = 0.0) -> Iterator[np.ndarray]:
+def iq_buffers(
+    stream: BinaryIO,
+    *,
+    loop: bool = False,
+    seekable: bool | None = None,
+    decode_eof_buffer: bool = False,
+    throttle_s: float = 0.0,
+) -> Iterator[np.ndarray]:
     """Yield the uint8[BUF_BYTES] buffers the reference's decode loop actually
     decodes (readDataFromFile, dump1090.c:460-514; EOF race, see module doc).
 
     loop: at EOF of a seekable stream, seek to 0 and read on (--loop; the
-    stream then never ends).  throttle_s: sleep before each fill, the
-    reference's interactive-mode playback brake (usleep(5000) per 65.5 ms
-    buffer, dump1090.c:471-477)."""
-    seekable = loop and stream.seekable()
+    stream then never ends).  seekable: whether loop may seek (None: ask
+    the stream).  decode_eof_buffer: also yield the padded buffer in which
+    EOF occurs when it is not the first (a reader slower than the decoder).
+    throttle_s: sleep before each fill, the reference's interactive-mode
+    playback brake (usleep(5000) per 65.5 ms buffer, dump1090.c:471-477)."""
+    if seekable is None:
+        seekable = stream.seekable()
     data = np.full(BUF_BYTES, 127, dtype=np.uint8)
     first = True
     while True:
@@ -55,7 +66,7 @@ def iq_buffers(stream: BinaryIO, loop: bool = False, throttle_s: float = 0.0) ->
         while filled < DATA_LEN_BYTES:
             chunk = stream.read(DATA_LEN_BYTES - filled)
             if not chunk:
-                if seekable:
+                if loop and seekable:
                     stream.seek(0)
                     continue
                 hit_eof = True
@@ -65,7 +76,7 @@ def iq_buffers(stream: BinaryIO, loop: bool = False, throttle_s: float = 0.0) ->
             filled += len(arr)
         if filled < DATA_LEN_BYTES:
             data[CARRY_BYTES + filled :] = 127  # pad with no-signal
-        if not hit_eof or first:
+        if not hit_eof or first or decode_eof_buffer:
             yield data.copy()
         first = False
         if hit_eof:

@@ -10,9 +10,13 @@ models/resolver.py and models/decoder.py are its Python twins.
 The library is compiled with g++ at first use into `_build/` in the
 package, keyed by a hash of the source and the flags (a stale or missing
 library is rebuilt).  The build writes a temporary file and renames it, so
-several processes may build at once.  `load` raises when g++ is missing or
-the library cannot be built or loaded; DemodPipeline(native=None) then
-takes the Python twin, native=True raises.
+several processes may build at once.  `load` raises when g++ is missing,
+when the library cannot be built or loaded, or when the environment sets
+DUMP1090_TPU_NO_NATIVE (to force the Python host path, as in the JAX
+package); DemodPipeline(native=None) then takes the Python twin, and with
+it the CLI's per-message path for --raw, native=True raises.  The variable
+chooses between the two host resolvers only: the device-resolve path never
+reads it.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from ..io.raw_lines import raw_lines_from_fields
-from ..models.decoder import STAT_FIELDS
+from ..models.decoder import STAT_FIELDS as STATS_FIELDS  # the library's stats order
 
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "modes_native.cpp"
@@ -139,8 +143,11 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded native library, built on first use.  Raises if it cannot
-    be built or loaded, or if its record layout is not RECORD_DTYPE's."""
+    be built or loaded, if its record layout is not RECORD_DTYPE's, or if
+    DUMP1090_TPU_NO_NATIVE is set (read at every call)."""
     global _lib
+    if os.environ.get("DUMP1090_TPU_NO_NATIVE"):
+        raise RuntimeError("DUMP1090_TPU_NO_NATIVE is set: the native host runtime is off")
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -184,7 +191,7 @@ def _candidate_arrays(pos, msg1, errors1, gate1, msg2, errors2, gate2):
 
 
 def _add_stats(stats, deltas: np.ndarray) -> None:
-    for name, d in zip(STAT_FIELDS, deltas.tolist()):
+    for name, d in zip(STATS_FIELDS, deltas.tolist()):
         setattr(stats, name, getattr(stats, name) + d)
 
 
@@ -195,8 +202,8 @@ class NativeResolver:
     Python network-input decode path and this resolver observe one state.
     """
 
-    def __init__(self):
-        self._lib = load()
+    def __init__(self, lib: ctypes.CDLL | None = None):
+        self._lib = lib if lib is not None else load()
         self._state = self._lib.d1090_create()
         self._out = np.zeros(4096, dtype=RECORD_DTYPE)
 
@@ -223,7 +230,7 @@ class NativeResolver:
             self._out = np.zeros(2 * n, dtype=RECORD_DTYPE)
         arrays = _candidate_arrays(cands.pos, cands.msg1, cands.errors1, cands.gate1,
                                    cands.msg2, cands.errors2, cands.gate2)
-        deltas = np.zeros(len(STAT_FIELDS), dtype=np.int64)
+        deltas = np.zeros(len(STATS_FIELDS), dtype=np.int64)
         n_out = self._lib.d1090_resolve_block(
             self._state, *map(_ptr, arrays), n, _ptr(cache.addr), _ptr(cache.ts),
             cache.clock(), int(cfg.fix_errors), int(cfg.aggressive), _ptr(deltas),
@@ -256,7 +263,7 @@ class NativeResolver:
         arrays = _candidate_arrays(*cand_host)
         n32 = np.ascontiguousarray(n_arr, dtype=np.int32)
         counts = np.zeros(nb, dtype=np.int64)
-        deltas = np.zeros(len(STAT_FIELDS), dtype=np.int64)
+        deltas = np.zeros(len(STATS_FIELDS), dtype=np.int64)
         total = self._lib.d1090_resolve_blocks(
             self._state, *map(_ptr, arrays), _ptr(n32), nb, mc, _ptr(cache.addr),
             _ptr(cache.ts), cache.clock(), int(cfg.fix_errors), int(cfg.aggressive),
@@ -274,7 +281,7 @@ class NativeResolver:
         b = np.frombuffer(bytes(raw), dtype=np.uint8)[:14]
         buf[: len(b)] = b
         out = np.zeros(1, dtype=RECORD_DTYPE)
-        deltas = np.zeros(len(STAT_FIELDS), dtype=np.int64)
+        deltas = np.zeros(len(STATS_FIELDS), dtype=np.int64)
         self._lib.d1090_decode_one(
             self._state, _ptr(buf), _ptr(out), _ptr(cache.addr), _ptr(cache.ts), cache.clock(),
             int(cfg.fix_errors), int(cfg.aggressive), _ptr(deltas),

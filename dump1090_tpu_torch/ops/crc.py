@@ -57,9 +57,15 @@ def checksum_bit_matrix() -> np.ndarray:
     return ((table[:, None] >> shifts[None, :]) & 1).astype(np.uint8)
 
 
+def bytes_to_bits(msgs: np.ndarray) -> np.ndarray:
+    """(B, nbytes) uint8 -> (B, nbytes*8) bits, MSB first."""
+    msgs = np.atleast_2d(np.asarray(msgs, dtype=np.uint8))
+    return np.unpackbits(msgs, axis=1)
+
+
 def compute_crc(msg: np.ndarray, bits: int) -> int:
     """CRC of the data portion only (dump1090.c:703-719). msg: uint8 bytes."""
-    b = np.unpackbits(np.asarray(msg, dtype=np.uint8).reshape(1, -1), axis=1)[0]
+    b = bytes_to_bits(np.asarray(msg, dtype=np.uint8).reshape(1, -1))[0]
     offset = 0 if bits == LONG_MSG_BITS else LONG_MSG_BITS - SHORT_MSG_BITS
     table = checksum_table()
     sel = table[offset : offset + bits - 24][b[: bits - 24] == 1]

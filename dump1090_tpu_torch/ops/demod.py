@@ -326,18 +326,18 @@ def check_front(front: str) -> tuple[bool, bool] | None:
     return "plain" not in tokens, "mxu" in tokens
 
 
-def front_candidates(m: torch.Tensor, scan_len: int, max_candidates: int,
+def front_candidates(m2d: torch.Tensor, scan_len: int, max_candidates: int,
                      front: str | None = None):
     """Batched front half: int32 magnitudes (B, S) -> (n int32[B] exact
     preamble count, pos int32[B, max_candidates]) in the formulation named
     by `front` (None: front_variant())."""
     packed = check_front(front_variant() if front is None else front)
     if packed is None:
-        mask = preamble_mask(m, scan_len)
+        mask = preamble_mask(m2d, scan_len)
         n = mask.sum(dim=1, dtype=torch.int32)
         return n, compact_positions(mask, max_candidates, scan_len)
     algebra, mxu = packed
-    return front_packed(m, scan_len, max_candidates, algebra=algebra, mxu=mxu)
+    return front_packed(m2d, scan_len, max_candidates, algebra=algebra, mxu=mxu)
 
 
 def _slice_window(ms: torch.Tensor):

@@ -37,19 +37,20 @@ def _magnitude(i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return c.add_(up).sub_(down)
 
 
-def magnitude_from_iq(iq: torch.Tensor) -> torch.Tensor:
-    """uint8 interleaved IQ [..., 2N] -> int32 magnitudes [..., N].
+def magnitude_from_iq(iq: torch.Tensor, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """uint8 interleaved IQ [..., 2N] -> magnitudes [..., N] of out_dtype.
 
     Exact equivalent of the reference maglut path (dump1090.c:1461-1468).
     I and Q are strided views of the bytes, widened to int32 before any
-    arithmetic."""
+    arithmetic.  Values are <= 65167, so out_dtype=torch.uint16 is lossless."""
     if iq.dtype != torch.uint8:
         raise TypeError(f"magnitude_from_iq takes uint8 IQ bytes, got {iq.dtype}")
-    return _magnitude(iq[..., 0::2].to(torch.int32), iq[..., 1::2].to(torch.int32))
+    return _magnitude(iq[..., 0::2].to(torch.int32), iq[..., 1::2].to(torch.int32)).to(out_dtype)
 
 
-def magnitude_from_pairs(pairs: torch.Tensor) -> torch.Tensor:
-    """uint16 IQ pairs [..., N] (little-endian I | Q<<8) -> int32 magnitudes.
+def magnitude_from_pairs(pairs: torch.Tensor, out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """uint16 IQ pairs [..., N] (little-endian I | Q<<8) -> magnitudes of
+    out_dtype (int32 by default; uint16 is lossless).
 
     The same wire bytes as magnitude_from_iq viewed two at a time.  uint16
     is only a storage type here: the pairs are reinterpreted as int16 and
@@ -57,7 +58,7 @@ def magnitude_from_pairs(pairs: torch.Tensor) -> torch.Tensor:
     if pairs.dtype != torch.uint16:
         raise TypeError(f"magnitude_from_pairs takes uint16 pairs, got {pairs.dtype}")
     p = pairs.view(torch.int16).to(torch.int32) & 0xFFFF
-    return _magnitude(p & 0xFF, p >> 8)
+    return _magnitude(p & 0xFF, p >> 8).to(out_dtype)
 
 
 def reference_maglut() -> np.ndarray:

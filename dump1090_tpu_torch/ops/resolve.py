@@ -981,6 +981,7 @@ def demod_resolve_streams(
     scan_len: int,
     max_candidates: int,
     max_out: int,
+    crcok_only: bool = False,
     front: str | None = None,
     marks: list | None = None,
 ):
@@ -1011,7 +1012,7 @@ def demod_resolve_streams(
         *walk_in, cache_addr, cache_ts, now, max_candidates, s_n
     )
     _mark(marks, "resolve")
-    post = functools.partial(_postprocess_unpacked, max_out=max_out)
+    post = functools.partial(_postprocess_unpacked, max_out=max_out, crcok_only=crcok_only)
     count, msg, meta, stats = _emit(post, s_n, words, msg1f, msg2f, pos_f, aux1, aux2)
     _mark(marks, "emission")
     return n.reshape(s_n, nb), count, msg, meta, stats, ca, ct

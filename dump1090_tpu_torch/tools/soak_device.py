@@ -1,9 +1,24 @@
-"""Wall-clock soaks of the port on the card, each held byte for byte against
-the port's own CPU replay of the same bytes under the same clock values (a
-port of tools/soak_device.py's wall-clock modes).
+"""Soaks of the port on the card (a port of tools/soak_device.py): a tiled
+capture held byte for byte against a reference run, and the wall-clock
+soaks, each held against the port's own CPU replay of the same bytes under
+the same clock values.
+
+    python -m dump1090_tpu_torch.tools.soak_device [--reps 60] [--ref CMD]
+        [--input FILE] [--batch 16] [--groups 8] [--device cuda]
+
+The fixed-reps mode (the default): --input (default
+reference/testfiles/modes1.bin at the repository's root; a missing file is
+an error) tiled --reps times is decoded twice through
+DemodPipeline.stream_raw_device (K1 and K2) on --device, a cold pass and a
+warm one, which must be equal, and the result is byte-compared with the
+oracle's `--ifile <tiled file> --raw` (--ref: the reference binary, or any
+command line that speaks its CLI, as tools/refbuild.py's
+reference_command reads it; no --ref builds the reference from
+`reference/`).  Prints SOAK PASS and exits 0, or SOAK FAIL at the first
+differing line and exits 1.
 
     python -m dump1090_tpu_torch.tools.soak_device --wall-minutes 10 [--wall-messages 10]
-        [--device cuda] [--rate-mb-s 4] [--batch 16] [--groups 2] [--seed 1]
+        [--device cuda] [--rate-mb-s 4] [--batch 16] [--groups 8] [--seed 1]
         [--quiet-bufs 1024]
 
 A deterministic pattern stream (PatternSource) of dense air (16 blocks of
@@ -30,10 +45,6 @@ With both, the two planes run side by side, one thread, one pipeline and
 one CUDA stream each, over the same window.  Exit 0 when every plane
 equals its replay and none is vacuous (no message, no SBS line, or fewer
 than two snapshots).
-
-The JAX tool's fixed-reps mode (--reps: a tiled capture against the
-reference binary) is left out: it needs the reference's binary and its
-modes1.bin capture, which the repository does not hold.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import torch
 from ..constants import DATA_LEN_BYTES
 
 REPO = Path(__file__).resolve().parents[2]
+REFERENCE_CAPTURE = REPO / "reference" / "testfiles" / "modes1.bin"
 RADIO_RATE_MB_S = 4.0  # one 262,144-byte buffer every 65.536 ms
 PLANES = ("wall", "messages")
 DENSE_BLOCKS = 16    # planted blocks of dense air a period (the chip_smoke.py air)
@@ -668,12 +680,87 @@ def oracle_main(spec_path: str, out_path: str, plane: str, threads: int = 0) -> 
     return 0
 
 
+def reps_passes(stream: np.ndarray, batch: int, groups: int, device) -> dict:
+    """The fixed-reps decode: `stream` (flat uint8 IQ) through
+    DemodPipeline.stream_raw_device on `device` twice, each pass a fresh
+    pipeline (cold, then warm).  Returns {"raw", "warm_raw", "cold_s",
+    "warm_s", "samples"}; the caller compares the two passes."""
+    from ..models.pipeline import DemodPipeline, PipelineConfig
+
+    cfg = PipelineConfig(batch_buffers=batch, dispatch_groups=groups)
+    out = {}
+    for name in ("cold", "warm"):
+        p = DemodPipeline(cfg, device=device)
+        t0 = time.perf_counter()
+        raw = b"".join(p.stream_raw_device(io.BytesIO(stream.tobytes())))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out["raw" if name == "cold" else "warm_raw"] = raw
+    out["samples"] = p.samples_in
+    return out
+
+
+def soak_reps(args) -> int:
+    """The fixed-reps soak (tools/soak_device.py's default mode): the tiled
+    capture on the device, cold and warm, against the oracle's --raw run."""
+    from . import air
+    from .refbuild import reference_command
+
+    path = Path(args.input) if args.input else REFERENCE_CAPTURE
+    try:
+        raw = air.stream(path)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"soak: {e}", file=sys.stderr)
+        return 1
+    ref_cmd = reference_command(args.ref)
+    stream = np.tile(raw, args.reps)
+    print(f"soak input: {path}, {stream.nbytes / 1e6:.0f} MB "
+          f"({stream.nbytes // 2 / 1e6:.0f} M samples)", file=sys.stderr)
+    res = reps_passes(stream, args.batch, args.groups, args.device)
+    ours = res["raw"]
+    print(f"ours: {len(ours.splitlines())} messages in {res['cold_s']:.2f}s "
+          f"(cold: includes the kernels' first launches)", file=sys.stderr)
+    if res["warm_raw"] != ours:
+        print("SOAK FAIL: the warm pass differs from the cold pass")
+        return 1
+    name = (torch.cuda.get_device_name(args.device) if args.device.type == "cuda"
+            else "the CPU")
+    print(f"warm pass: {res['warm_s']:.2f}s -> {res['samples'] / res['warm_s'] / 1e6:.0f} "
+          f"Msamples/s on {name}", file=sys.stderr)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tiled = Path(tmp) / "soak.bin"
+        stream.tofile(tiled)
+        t0 = time.perf_counter()
+        r = subprocess.run([*ref_cmd, "--ifile", str(tiled), "--raw"], cwd=REPO,
+                           capture_output=True, timeout=600)
+        print(f"reference: {len(r.stdout.splitlines())} messages in "
+              f"{time.perf_counter() - t0:.2f}s (exit {r.returncode})", file=sys.stderr)
+    ref = r.stdout
+
+    if ours == ref:
+        print(f"SOAK PASS: {len(ours.splitlines())} messages, {len(ours)} bytes identical")
+        return 0
+    a, b = ours.splitlines(), ref.splitlines()
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            print(f"SOAK FAIL at line {i}: ours {x!r} ref {y!r}")
+            break
+    print(f"SOAK FAIL: ours {len(a)} ref {len(b)} lines")
+    return 1
+
+
 def parser() -> argparse.ArgumentParser:
     """The options of main; chip_smoke.py builds its soak from them too."""
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n")[0],
-        epilog="The fixed-reps mode of the JAX tool (--reps, against the reference "
-        "binary) is not here: it needs the reference's binary and modes1.bin.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=60,
+                    help="tilings of --input in the fixed-reps soak (the default mode)")
+    ap.add_argument("--ref", default=None,
+                    help="the fixed-reps soak's oracle: the reference binary or a command "
+                    "line that speaks its CLI (default: built from reference/)")
+    ap.add_argument("--input", default=None,
+                    help=f"the fixed-reps soak's capture (default {REFERENCE_CAPTURE})")
     ap.add_argument("--wall-minutes", type=float, default=0,
                     help="soak the raw-stream plane (stream_raw_device) for this "
                     "many minutes")
@@ -684,7 +771,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; no card is an error) or cpu")
     ap.add_argument("--batch", type=int, default=16, help="buffers per batch")
-    ap.add_argument("--groups", type=int, default=2, help="batches per dispatch group")
+    ap.add_argument("--groups", type=int, default=8, help="batches per dispatch group")
     ap.add_argument("--rate-mb-s", type=float, default=RADIO_RATE_MB_S,
                     help="ingest pacing (default: the radio's 4 MB/s)")
     ap.add_argument("--seed", type=int, default=1, help="seed of the dense air")
@@ -708,10 +795,10 @@ def main(argv=None) -> int:
     if args.oracle_spec:
         return oracle_main(args.oracle_spec, args.oracle_out, args.oracle_plane,
                            args.oracle_threads)
+    if not (args.wall_minutes or args.wall_messages):
+        return soak_reps(args)
     specs = {plane: make_spec(args, plane) for plane, minutes
              in (("wall", args.wall_minutes), ("messages", args.wall_messages)) if minutes}
-    if not specs:
-        ap.error("give --wall-minutes and/or --wall-messages")
     for plane, spec in specs.items():
         print(_describe(plane, spec), file=sys.stderr)
     return 0 if all(r["ok"] for r in soak(specs, args.device).values()) else 1

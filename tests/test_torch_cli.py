@@ -332,6 +332,41 @@ def test_host_resolve_cli_equals_device_resolve_and_jax(outputs, golden_dir, syn
         assert got == _main_inprocess(jcli.main, ["--tpu-backend", "cpu", *args])
 
 
+
+def test_no_native_raw_takes_the_hub_path_and_equals_jax(outputs, synth_path, tmp_path,
+                                                         jax_native):
+    """DUMP1090_TPU_NO_NATIVE=1 turns the native host runtime off, and with it
+    the bulk --raw path of --tpu-device-resolve off: the port's CLI then
+    takes the per-message hub path (and says so on stderr), with the same
+    stdout as its native run, the JAX CLI's with the variable (its
+    pure-Python host path) and without it (JAX_MAIN: its native runtime),
+    and the device-resolve output."""
+    env = _env(tmp_path / "jaxcache")
+    off = dict(env, DUMP1090_TPU_NO_NATIVE="1")
+    tail = ("--tpu-device-resolve", "off", "--ifile", str(synth_path), "--raw")
+    cmds = {
+        "port": ((*PORT_CLI[:4], *tail), env),
+        "port_no_native": ((*PORT_CLI[:4], *tail), off),
+        "jax_no_native": ((*JAX_M, "--tpu-backend", "cpu", *tail), off),
+        "jax": ((*JAX_MAIN, "--tpu-backend", "cpu", *tail), env),
+    }
+
+    def run(cmd, e):
+        return subprocess.run([sys.executable, *cmd], cwd=REPO, env=e, capture_output=True,
+                              timeout=300)
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        res = {k: pool.submit(run, *c) for k, c in cmds.items()}
+        res = {k: f.result() for k, f in res.items()}
+    for k, r in res.items():
+        assert r.returncode == 0, (k, r.stderr.decode()[-2000:])
+    assert b"DUMP1090_TPU_NO_NATIVE" in res["port_no_native"].stderr
+    assert b"DUMP1090_TPU_NO_NATIVE" not in res["port"].stderr
+    want = outputs[("synth", "port", "raw")]
+    assert want.count(b"\n") > 20
+    for k, r in res.items():
+        assert r.stdout == want, k
+
 FRONTS = ["mask", "packed", "packed-mxu", "packed-plain", "packed-plain-mxu"]
 
 

@@ -415,3 +415,18 @@ def test_sharded_decode_on_card_equals_cpu(cuda):
             assert got == want, (dp, sp, dr)
             assert _cuda.launches["gather_windows"] > 0
             assert (_cuda.launches["resolve_words"] > 0) == dr
+
+
+def test_uint16_magnitudes_on_card_equal_int32_and_cpu(cuda):
+    """out_dtype=torch.uint16 on the card: the same values as int32 (at most
+    65,167) and as the CPU, through both entries."""
+    from dump1090_tpu_torch.ops.magnitude import magnitude_from_iq, magnitude_from_pairs
+
+    pairs = np.random.default_rng(4).integers(0, 1 << 16, (3, 4096), dtype=np.uint16)
+    pairs[0, :2] = [0x0000, 0xFFFF]
+    want = magnitude_from_pairs(torch.from_numpy(pairs)).numpy()
+    for got in (magnitude_from_pairs(torch.from_numpy(pairs).to(cuda), out_dtype=torch.uint16),
+                magnitude_from_iq(torch.from_numpy(pairs.view(np.uint8)).to(cuda),
+                                  out_dtype=torch.uint16)):
+        assert got.dtype == torch.uint16
+        np.testing.assert_array_equal(got.cpu().view(torch.int16).numpy().view(np.uint16), want)

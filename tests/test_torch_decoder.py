@@ -58,6 +58,14 @@ def test_batch_syndromes_match_jax():
         )
 
 
+
+@pytest.mark.parametrize("shape", [(14,), (5, 7), (3, 14), (0, 14)])
+def test_bytes_to_bits_matches_jax(shape):
+    msgs = np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8)
+    got, want = tcrc.bytes_to_bits(msgs), jcrc.bytes_to_bits(msgs)
+    assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
 def test_messages_from_device_arrays_match_jax():
     msgs, meta = _frames_and_meta(2)
     got = td.messages_from_device_arrays(msgs, meta)

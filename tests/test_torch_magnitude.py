@@ -37,3 +37,21 @@ def test_random_pairs_match_jax():
     np.testing.assert_array_equal(got, want)
     got_iq = magnitude_from_iq(torch.from_numpy(pairs.view(np.uint8))).numpy()
     np.testing.assert_array_equal(got_iq, want)
+
+
+def test_out_dtype_matches_jax():
+    """out_dtype: int32 by default; uint16 holds the same values (at most
+    65,167), through both entries, as the JAX package's out_dtype does."""
+    rng = np.random.default_rng(1)
+    pairs = rng.integers(0, 1 << 16, (3, 4096), dtype=np.uint16)
+    pairs[0, :2] = [0x0000, 0xFFFF]  # the largest magnitude, 65,167
+    for t_dtype, j_dtype in ((torch.int32, jnp.int32), (torch.uint16, jnp.uint16)):
+        want = np.asarray(jax_from_pairs(jnp.asarray(pairs), out_dtype=j_dtype))
+        for got in (magnitude_from_pairs(torch.from_numpy(pairs), out_dtype=t_dtype),
+                    magnitude_from_iq(torch.from_numpy(pairs.view(np.uint8)), out_dtype=t_dtype)):
+            assert got.dtype == t_dtype
+            got = got.to(torch.int32).numpy()
+            assert got.dtype == np.int32 and want.dtype == np.dtype(j_dtype)
+            np.testing.assert_array_equal(got, want.astype(np.int32))
+    assert int(magnitude_from_pairs(torch.from_numpy(pairs), out_dtype=torch.uint16)
+               .to(torch.int32).max()) == 65167

@@ -281,6 +281,31 @@ def test_native_true_none_false(tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().err == "" and not (tmp_path / "_build").exists()
 
 
+
+def test_no_native_variable_turns_the_runtime_off(resolver, monkeypatch, capsys):
+    """DUMP1090_TPU_NO_NATIVE=1: load() raises an error that names the
+    variable, even with the library loaded; native=None takes the Python
+    resolver and says why on stderr; native=True raises.  The variable is
+    read at every call, so clearing it brings the runtime back; a library
+    handed to NativeResolver is used as it is.  STATS_FIELDS is the JAX
+    package's tuple, in its order."""
+    import dump1090_tpu.native as jn
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline
+
+    assert tn.STATS_FIELDS == jn.STATS_FIELDS
+    lib = tn.load()
+    monkeypatch.setenv("DUMP1090_TPU_NO_NATIVE", "1")
+    with pytest.raises(RuntimeError, match="DUMP1090_TPU_NO_NATIVE"):
+        tn.load()
+    with pytest.raises(RuntimeError, match="DUMP1090_TPU_NO_NATIVE"):
+        DemodPipeline(device="cpu", native=True)
+    assert DemodPipeline(device="cpu")._native is None
+    assert "DUMP1090_TPU_NO_NATIVE" in capsys.readouterr().err
+    assert tn.NativeResolver(lib)._lib is lib
+    monkeypatch.delenv("DUMP1090_TPU_NO_NATIVE")
+    assert tn.load() is lib and DemodPipeline(device="cpu")._native is not None
+
+
 # what a parallel run's lost build race left behind: the four comparisons
 # with the JAX package's native runtime that then failed
 RACE_TESTS = [

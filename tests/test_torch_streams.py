@@ -173,6 +173,18 @@ def test_demod_resolve_streams_matches_jax(crcok_only):
     assert not (ca_t == ca0).all()
     if not crcok_only:
         assert ((meta_t >= 0) & ((meta_t & tr.META_CRCOK) == 0)).any()
+    else:
+        # and the port's own device-side filter, as JAX's
+        got = tr.demod_resolve_streams(
+            torch.from_numpy(xs), *_torch(ca0, ct0), NOW, True, False,
+            scan_len=SCAN, max_candidates=mc, max_out=mo, crcok_only=True,
+        )
+        count_d, msg_d, meta_d = (got[k].numpy() for k in (1, 2, 3))
+        np.testing.assert_array_equal(count_d, count_j)
+        np.testing.assert_array_equal(meta_d, meta_j)
+        for s in range(3):
+            c = int(count_j[s])
+            np.testing.assert_array_equal(msg_d[s, :c], msg_j[s, :c])
 
 
 @pytest.mark.parametrize("crcok_only", [False, True])
