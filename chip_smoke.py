@@ -16,6 +16,10 @@ capture, checking what comes out:
   * the --raw file decode (DemodPipeline.stream_raw_device) at the CLI's
     defaults: 64-buffer batches, 8 batches per group, max_candidates 256,
     dispatch-ahead 3 (kernels K1 gather_windows and K2 resolve_words);
+  * the emission's crcok_only (`crcok`: ops.resolve.demod_resolve_group
+    with its defaults, packed with crcok_only False and True, and
+    demod_resolve_batch packed with every attempted decode, over the first
+    4 dense buffers at mc 256, each equal to the CPU's call; K1 and K2);
   * the multi-capture decode (decode_captures) of 128 captures of 4-16
     buffers, 4 buffers of each per round: one 512-buffer dispatch per round
     (kernels K1 and K3 resolve_words_streams);
@@ -54,9 +58,11 @@ capture, checking what comes out:
     candidate segments): meshes (1, 1), (1, 4) and (2, 4) with both
     resolve strategies in three decoder modes against the unsharded decode
     and the CPU, a (32, 2) mesh that grows both shapes, --tpu-shard-time 1
-    against --raw, the multi-process worker at world size 1, K1 and K2
-    against their plain versions at this path's shapes, and the (1, 4) and
-    (2, 4) decodes of 64 dense buffers timed (counted);
+    against --raw, the multi-process worker at world size 1 with --bench
+    (the sharded step over 131,072 samples on 4 shards of the card, s/step
+    printed beside the card's name and power limit, counted), K1
+    and K2 against their plain versions at this path's shapes, and the
+    (1, 4) and (2, 4) decodes of 64 dense buffers timed (counted);
   * the differential fuzz (`fuzz`: tools/fuzz_diff.py's random streams of
     six recipes, noise to frames across buffer boundaries, in six modes:
     the device resolver in three decoder modes, the host resolve, the
@@ -139,6 +145,15 @@ REPO = Path(__file__).resolve().parent
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1603,11 +1618,12 @@ def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> 
     too and equals the unsharded decode; --tpu-shard-time 1 --raw through cli.main byte-equal
     to --raw; initialize_from_env() is False with no launcher variables, and
     the multi-process worker passes at world size 1 with 4 shards on the
-    card.  K1 and K2 are held against their plain versions at the shapes
-    of the sharded path.  Measurement, counted: the (1, 4) and (2, 4)
-    decodes with the device resolve over 64 dense buffers (wall time,
-    Msamples/s).  Returns the launches of the (2, 4) run and the kernel
-    checks."""
+    card under --bench (8 timed steps of the sharded step, counted on its
+    own).  K1 and K2 are held against their plain versions
+    at the shapes of the sharded path.  Measurement, counted: the (1, 4)
+    and (2, 4) decodes with the device resolve over 64 dense buffers (wall
+    time, Msamples/s).  Returns the launches of the (2, 4) run and of the
+    worker's --bench."""
     import os
 
     from dump1090_tpu_torch import api, decode_capture_sharded
@@ -1695,7 +1711,9 @@ def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> 
         raise AssertionError("--tpu-shard-time 1 --raw differs from --raw")
 
     # the multi-process session at world size 1 (one card cannot hold two
-    # NCCL ranks)
+    # NCCL ranks); then the worker's --bench (the JAX package's only timing
+    # of the sharded step): 131,072 samples over 4 shards of the card,
+    # counted as a path of its own
     env = dict(os.environ)
     for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         os.environ.pop(k, None)
@@ -1703,13 +1721,25 @@ def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> 
         if multihost.initialize_from_env() is not False:
             raise AssertionError("initialize_from_env() started a session with no launcher variables")
         out = io.StringIO()
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
         with contextlib.redirect_stdout(out):
-            rc = multihost_worker.main(["0", "1", "0", "--local-shards", "4"])
+            rc = multihost_worker.main(["0", "1", "0", "--devices-per-proc", "4", "--bench",
+                                        "--steps", "8"])
+        torch.cuda.synchronize()
+        bench_launches = dict(_cuda.launches)
     finally:
         os.environ.clear()
         os.environ.update(env)
-    if rc != 0 or "MULTIHOST PASS" not in out.getvalue():
+    lines = out.getvalue().splitlines()
+    pass_line = next((ln for ln in lines if ln.startswith("MULTIHOST PASS")), "")
+    bench_line = next((ln for ln in lines if ln.startswith("MULTIHOST BENCH ")), "")
+    if rc != 0 or not pass_line or not bench_line:
         raise AssertionError(f"the multi-process worker failed at world size 1: {out.getvalue()}")
+    worker_bench = {"s_per_step": float(bench_line.split()[2]), "line": bench_line,
+                    "nvidia_smi": nvidia_smi(), "launches": bench_launches}
+    print(f"sharded step (worker --bench): {worker_bench['s_per_step']} s/step on "
+          f"{worker_bench['nvidia_smi']}", flush=True)
 
     # measurement, counted: 64 dense buffers, device resolve; K1's and K2's
     # inputs recorded at the first call for the kernel checks
@@ -1768,13 +1798,84 @@ def sharded_phase(blocks: list, planted: list, dev: torch.device, tmp: Path) -> 
           "equal_cpu": True, "planted_checked": checked, "matrix_s": matrix_s,
           "grow_s": grow_s, "grown_32x2": sorted(set(seen)),
           "cli_shard1_raw_equal": True, "cli_s": cli_s, "initialize_from_env": False,
-          "worker": out.getvalue().strip(), "dense64": timing, "kernels_sharded": kernels,
-          "phase_s": time.perf_counter() - t_phase})
-    return launches, kernels
+          "worker": pass_line, "worker_bench": worker_bench, "dense64": timing,
+          "kernels_sharded": kernels, "phase_s": time.perf_counter() - t_phase})
+    return launches, bench_launches
 
 
 FUZZ_MODES = ("device", "device-nofix", "device-aggressive", "raw", "sharded-device",
               "device-verbose")
+
+
+def crcok_phase(data: bytes, dev: torch.device) -> dict:
+    """The emission's crcok_only on the card (ops.resolve): the first 4
+    dense buffers as a group of 2 batches of 2 at mc 256, four calls --
+    demod_resolve_group with its defaults (packed, good-CRC decodes only),
+    with packed=True, crcok_only=False (every attempted decode), with
+    packed=True, crcok_only=True, and demod_resolve_batch(packed=True,
+    crcok_only=False) over the 4 buffers as one batch -- each output array
+    equal to the same call on the CPU.  The defaults equal the explicit
+    good-CRC call, every decode outnumbers the good ones, and the batch
+    emits the group's total.  Counted as a path of its own; K1 and K2 are
+    held to their plain versions on each call's inputs.  Returns the
+    launches."""
+    from dump1090_tpu_torch.io.sources import iq_buffers
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.resolve import (
+        clamp_packed_out,
+        demod_resolve_batch,
+        demod_resolve_group,
+    )
+
+    t_phase = time.perf_counter()
+    bufs = np.stack(list(iq_buffers(io.BytesIO(data[: 5 * DATA_LEN_BYTES]))))[:4]
+    mos, mol = clamp_packed_out(4096, 4096)
+    shapes = dict(scan_len=131070, max_candidates=256, max_out_short=mos, max_out_long=mol)
+    group = bufs.reshape(2, 2, -1)
+    calls = {
+        "defaults": (demod_resolve_group, group, {}),
+        "packed_every": (demod_resolve_group, group, dict(packed=True, crcok_only=False)),
+        "packed_good": (demod_resolve_group, group, dict(packed=True, crcok_only=True)),
+        "batch_packed_every": (demod_resolve_batch, bufs, dict(packed=True, crcok_only=False)),
+    }
+
+    def run(name: str, d) -> list:
+        fn, x, kw = calls[name]
+        z = torch.zeros(1024, dtype=torch.int32, device=d)
+        out = fn(torch.from_numpy(x).to(d), z, z.clone(), NOW, True, False, **shapes, **kw)
+        return [o.cpu().numpy() for o in out]
+
+    current = [None]
+    card = {}
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with kernel_inputs(lambda kind, mc, n: current[0]) as rec:
+        for name in calls:
+            current[0] = name
+            card[name] = run(name, dev)
+        torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    counts = {}
+    for name in calls:
+        cpu = run(name, "cpu")
+        for k, (a, b) in enumerate(zip(card[name], cpu, strict=True)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"crcok {name}: output {k} on the card differs from the CPU")
+        count, clong = card[name][1], card[name][2]
+        if ((count - clong) > mos).any() or (clong > mol).any():
+            raise AssertionError(f"crcok {name}: the emission overflowed its caps")
+        counts[name] = {"decodes": int(count.sum()), "shorts": int((count - clong).sum()),
+                        "longs": int(clong.sum())}
+    good, every = counts["defaults"], counts["packed_every"]
+    if good != counts["packed_good"] or not good["decodes"] > 0:
+        raise AssertionError(f"crcok: the defaults are not the good-CRC emission: {counts}")
+    if not every["decodes"] > good["decodes"] or counts["batch_packed_every"] != every:
+        raise AssertionError(f"crcok: every attempted decode was not emitted: {counts}")
+    kernels = check_kernel_inputs(rec, "crcok")
+    emit({"phase": "crcok", "buffers": 4, "group": [2, 2], "mc": 256, "caps": [mos, mol],
+          "counts": counts, "equal_cpu": True, "launches": launches, "kernels": kernels,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 @contextlib.contextmanager
@@ -2644,6 +2745,9 @@ def main() -> int:
           "peak_device_bytes": peak, "settled_shapes": shapes,
           "groups_replayed": launches["resolve_words"] - args.groups})
 
+    # ---- the emission's crcok_only, packed and not ----------------------------
+    crcok_launches = crcok_phase(data, dev)
+
     # ---- the multi-capture path: K3 at its width, then the path itself ------
     k3 = resolve_streams_phase(bufs, sparse_bufs, args.seed, dev)
     del sparse_bufs
@@ -2699,7 +2803,7 @@ def main() -> int:
 
     # ---- the time-sharded decode ------------------------------------------------
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as tmp:
-        sharded_launches, _ = sharded_phase(blocks, planted, dev, Path(tmp))
+        sharded_launches, worker_bench_launches = sharded_phase(blocks, planted, dev, Path(tmp))
 
     # ---- the differential fuzz and the wall-clock soaks -----------------------
     fuzz_launches = fuzz_phase(args.seed, dev)
@@ -2739,6 +2843,8 @@ def main() -> int:
         "live_cli": (live_cli_launches, ("gather_windows", "resolve_words")),
         "profile": (profile_launches, ("gather_windows", "resolve_words")),
         "sharded": (sharded_launches, ("gather_windows", "resolve_words")),
+        "worker_bench": (worker_bench_launches, ("gather_windows",)),
+        "crcok": (crcok_launches, ("gather_windows", "resolve_words")),
         "fuzz": (fuzz_launches, ("gather_windows", "resolve_words")),
         "soak": (soak_launches, ("gather_windows", "resolve_words")),
         "stdin": (stdin_launches, ("gather_windows", "resolve_words")),
@@ -2755,10 +2861,7 @@ def main() -> int:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the {path} path")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     emit({"phase": "gpu", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     print(smi, flush=True)
@@ -2782,10 +2885,14 @@ def main() -> int:
         # and on the benchmark's and the probes' own runs
         r["launches_bench"] = bench_launches.get(r["name"], 0)
         r["launches_measure"] = probe_launches.get(r["name"], 0)
+        # and on the crcok calls and the multihost worker's --bench
+        r["launches_crcok"] = crcok_launches.get(r["name"], 0)
+        r["launches_worker_bench"] = worker_bench_launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_sharded",
             "launches_fuzz", "launches_soak", "launches_stdin", "launches_snr",
-            "launches_reps", "launches_bench", "launches_measure")
+            "launches_reps", "launches_bench", "launches_measure", "launches_crcok",
+            "launches_worker_bench")
     emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

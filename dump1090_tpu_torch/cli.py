@@ -53,11 +53,11 @@ HELP = """\
 --no-fix                 Disable single-bits error correction using CRC.
 --no-crc-check           Disable messages with broken CRC (discouraged).
 --aggressive             More CPU for more messages (two bits fixes, ...).
---debug <flags>          Debug mode (verbose), see README for details.
 --stats                  With --ifile print stats at exit. No other output.
 --onlyaddr               Show only ICAO addresses (testing purposes).
 --metric                 Use metric units (meters, km/h, ...).
 --snip <level>           Strip IQ file removing samples < level.
+--debug <flags>          Debug mode (verbose), see README for details.
 --help                   Show this help.
 
 --tpu-max-candidates <n> Max preamble candidates per block (default: 256).

@@ -303,12 +303,14 @@ class DemodPipeline:
         ct = torch.as_tensor(np.clip(self.cache.ts, 0, 2**31 - 1).astype(np.int32), device=dev)
 
         def dispatch(xg, ca, ct):
+            # packed (the raw path): good-CRC decodes only; unpacked
+            # (run_device): every attempted decode, as the hub needs
             out = demod_resolve_group(
                 xg, ca, ct, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
                 scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
                 max_candidates=self._mc, max_out=self._mo,
                 max_out_short=self._mos, max_out_long=self._mol,
-                packed=packed, front=self._front,
+                packed=packed, crcok_only=packed, front=self._front,
             )
             # start the fetch now: it runs as soon as the group finishes,
             # while the next groups compute; the cache stays on the device

@@ -627,16 +627,28 @@ def _gather_rows(rows: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.gather(rows, 1, sel[..., None].expand(sel.shape + rows.shape[2:]))
 
 
+def _emit_mask(words, crcok_only: bool) -> torch.Tensor:
+    """The emitted slots of every batch in emission order (G, 2P): every
+    attempted decode, or with crcok_only the good-CRC ones only."""
+
+    def bit(b: int) -> torch.Tensor:
+        return (words & b) != 0
+
+    if crcok_only:
+        return _pairs(bit(R_ATT1) & bit(R_CRCOK1), bit(R_ATT2) & bit(R_CRCOK2))
+    return _pairs(bit(R_ATT1), bit(R_ATT2))
+
+
 def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
-                        max_out_short: int, max_out_long: int):
+                        max_out_short: int, max_out_long: int, crcok_only: bool):
     """Stats + packed emission of every batch of a group, vectorized over
     the batch axis: words/pos (G, P), msg*f (G, P, 14), aux* (G, P).
-    Only crcok messages are emitted (the raw/stats path).  Returns (count
-    (G,), count_long (G,), shorts uint8 (G, mos, 9), longs uint8 (G, mol,
-    14), stats int32 (G, 8))."""
+    With crcok_only (the raw/stats path) only good-CRC decodes are
+    emitted, else every attempted decode.  Returns (count (G,), count_long
+    (G,), shorts uint8 (G, mos, 9), longs uint8 (G, mol, 14), stats int32
+    (G, 8))."""
     stats = _batch_stats(words, pos, aux1, aux2)
-    emask = _pairs(((words & R_ATT1) != 0) & ((words & R_CRCOK1) != 0),
-                   ((words & R_ATT2) != 0) & ((words & R_CRCOK2) != 0))
+    emask = _emit_mask(words, crcok_only)
     count = emask.sum(dim=1, dtype=torch.int32)
     long_slot = _pairs(aux1["long"], aux2["long"])
     msgs12 = _pairs(msg1f, msg2f)
@@ -659,7 +671,7 @@ def _postprocess_packed(words, msg1f, msg2f, pos, aux1, aux2, *,
 
 
 def _postprocess_unpacked(words, msg1f, msg2f, pos, aux1, aux2, *, max_out: int,
-                          crcok_only: bool = False):
+                          crcok_only: bool):
     """Stats + unpacked emission of every batch, vectorized over the batch
     axis (the shapes of _postprocess_packed): every attempted decode, good
     and bad CRC (only the good ones with crcok_only), in scan order, as 14
@@ -671,11 +683,8 @@ def _postprocess_unpacked(words, msg1f, msg2f, pos, aux1, aux2, *, max_out: int,
     def bit(b: int) -> torch.Tensor:
         return (words & b) != 0
 
-    att1, crcok1, att2, crcok2 = bit(R_ATT1), bit(R_CRCOK1), bit(R_ATT2), bit(R_CRCOK2)
-    if crcok_only:
-        emask = _pairs(att1 & crcok1, att2 & crcok2)
-    else:
-        emask = _pairs(att1, att2)
+    att1, crcok1, crcok2 = bit(R_ATT1), bit(R_CRCOK1), bit(R_CRCOK2)
+    emask = _emit_mask(words, crcok_only)
     count = emask.sum(dim=1, dtype=torch.int32)
     sel, ok = _first_k(emask, max_out)
     msg_out = _gather_rows(_pairs(msg1f, msg2f), sel)
@@ -815,7 +824,7 @@ def demod_resolve_group(
     max_out_short: int = 0,
     max_out_long: int = 0,
     packed: bool = True,
-    crcok_only: bool = False,
+    crcok_only: bool = True,
     front: str | None = None,
     marks: list | None = None,
 ):
@@ -826,8 +835,8 @@ def demod_resolve_group(
     state chain through it in stream order), and each batch's messages are
     emitted.  Everything is enqueued without a host sync.
 
-    Returns, with packed=True (the raw/stats wire format: crcok messages
-    only; max_out is not read):
+    Returns, with packed=True (the raw/stats wire format; max_out is not
+    read):
       n          int32[G, NB]      exact preamble count per buffer
       count      int32[G]          exact emitted-message count per batch
       count_long int32[G]          how many of those are 112-bit frames
@@ -835,11 +844,11 @@ def demod_resolve_group(
       longs      uint8[G, mol, 14] 14 frame bytes, in emission order
       stats      int32[G, 8]       reference counter deltas (DecoderStats order)
       cache_addr', cache_ts'       int32[1024]
-    With packed=False (the full-fidelity format of run_device: every
-    attempted decode, good and bad CRC):
+    With packed=False (the full-fidelity format of run_device):
       n, count, msg uint8[G, max_out, 14], meta int32[G, max_out], stats,
       cache_addr', cache_ts'
-    (with crcok_only, the good-CRC decodes only) where meta is pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1
+    Either format emits the good-CRC decodes only with crcok_only (the
+    default), and every attempted decode, good and bad CRC, without; meta is pos<<12 | (errorbit+1)<<4 | pass<<3 | long<<2 | phase<<1
     | crcok, -1 beyond the count (models/decoder.py message_from_device
     consumes it).  Overflow is detected from the exact counts (n >
     max_candidates, count-count_long > mos or count_long > mol, count >
@@ -859,7 +868,7 @@ def demod_resolve_group(
         )
     if packed:
         post = functools.partial(_postprocess_packed, max_out_short=max_out_short,
-                                 max_out_long=max_out_long)
+                                 max_out_long=max_out_long, crcok_only=crcok_only)
     else:
         post = functools.partial(_postprocess_unpacked, max_out=max_out,
                                  crcok_only=crcok_only)
@@ -896,10 +905,8 @@ def demod_resolve_batch(
     Unpacked returns (n[NB], count, msg[max_out,14], meta[max_out], stats[8],
     cache_addr', cache_ts'); packed returns (n, count, count_long, shorts,
     longs, stats, cache_addr', cache_ts') -- see demod_resolve_group for the
-    layouts.  The packed format carries good-CRC messages only, so it takes
-    crcok_only=True."""
-    if packed and not crcok_only:
-        raise ValueError("the packed emission carries good-CRC messages only (crcok_only=True)")
+    layouts; either emits the good-CRC decodes only with crcok_only, every
+    attempted decode without."""
     outs = demod_resolve_group(
         iq_buffers[None], cache_addr, cache_ts, now, fix_errors, aggressive,
         scan_len=scan_len, max_candidates=max_candidates, max_out=max_out,

@@ -32,7 +32,8 @@ kernel (pageable, as _ingest_groups uploads, and pinned, as _upload does);
 the cold file (the product file decode, DemodPipeline._device_batches at
 the CLI's 64 x 8, over a temporary file of the input tiled to about 857 MB,
 deleted afterwards: time to the first batch, effective preload rate, steady
-rate to EOF; --cold-mb 0 skips it); the resident groups and the first group
+rate to EOF; --cold-mb 0, or $DUMP1090_BENCH_SKIP_COLD set to any non-empty
+value as for bench.py, skips it); the resident groups and the first group
 (with the kernels' build or load); the sustained run; the device demod
 alone (L = 64 loops of ops.demod.demod_batch on the uint8 wire, every output
 consumed, CUDA events); the fused demod + resolve (L = 16 of
@@ -269,7 +270,7 @@ class Group:
             )
         m, n, pos = self.front(x, scan_len=SCAN_LEN, max_candidates=self.mc)
         post = functools.partial(_postprocess_packed, max_out_short=self.mos,
-                                 max_out_long=self.mol)
+                                 max_out_long=self.mol, crcok_only=True)
         return _group_back(m, n, pos, ca, ct, NOW, True, False, g_n=x.shape[0],
                            max_candidates=self.mc, post=post, marks=marks)
 
@@ -598,6 +599,8 @@ def main(argv=None) -> int:
                     help="calls in each component timing loop (default bench.py's: 64 "
                     "demod, 16 fused, 32 of each sparse)")
     args = ap.parse_args(argv)
+    if os.environ.get("DUMP1090_BENCH_SKIP_COLD"):
+        args.cold_mb = 0
     dev = resolve_device(args.device)
 
     watchdog_s = float(os.environ.get("BENCH_WATCHDOG_S", "2400"))

@@ -260,20 +260,20 @@ def fuzz(n: int, seed: int, modes, device, *, in_process: bool = False,
 
 def main(argv=None) -> int:
     from .. import resolve_device
+    from . import add_device_options, device_option
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=50, help="random streams")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mode", nargs="+", default=["raw"], choices=MODES,
                     help="one or more modes, each run on every stream")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; no card is an error) or cpu")
+    add_device_options(ap)
     ap.add_argument("--out", default=os.curdir, help="directory for failing streams")
     ap.add_argument("--ref", default=None,
                     help="also compare with this oracle (the reference binary, or a "
                     "command line that speaks its CLI)")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(device_option(ap, args))
     ref_cmd = None
     if args.ref is not None:
         from .refbuild import reference_command

@@ -105,6 +105,7 @@ def point_stream(snr: float, frames: int) -> tuple[np.ndarray, list[str]]:
 
 def main(argv=None) -> int:
     from .. import resolve_device
+    from . import add_device_options, device_option
     from .refbuild import reference_command
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -114,13 +115,12 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--snrs", default="-2,0,2,4,6,8,10,14,20",
                     help="comma-separated dB; a leading minus needs --snrs=-2,...")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; no card is an error) or cpu")
+    add_device_options(ap)
     ap.add_argument("--device-resolve", action="store_true",
                     help="resolve on the device (DemodPipeline.run_device) instead of "
                     "the host")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(device_option(ap, args))
 
     try:  # build the reference on demand; sweep without it only if impossible
         ref_cmd = reference_command(args.ref)

@@ -67,13 +67,13 @@ import numpy as np
 import torch
 
 from ..constants import DATA_LEN_BYTES
+from . import add_device_options, device_option
 
 REPO = Path(__file__).resolve().parents[2]
 REFERENCE_CAPTURE = REPO / "reference" / "testfiles" / "modes1.bin"
 RADIO_RATE_MB_S = 4.0  # one 262,144-byte buffer every 65.536 ms
 PLANES = ("wall", "messages")
-DENSE_BLOCKS = 16    # planted blocks of dense air a period (the chip_smoke.py air)
-FLEET = (8, 6)       # fleet aircraft, timesteps a period
+DENSE_BLOCKS = 16    # planted blocks of one tile of dense air (the chip_smoke.py air)
 EVICT_EVERY = 200    # messages between stale-aircraft evictions (messages plane)
 SNAP_EVERY = 1000    # messages between data.json snapshots (messages plane)
 
@@ -198,8 +198,9 @@ def dense_bytes(seed: int, blocks: int = DENSE_BLOCKS) -> np.ndarray:
 
 
 class PatternSource:
-    """Deterministic looping IQ byte stream: the dense bytes, the fleet's
-    frames, then `quiet_bufs` buffer-lengths of dead air (127s), repeated.  Byte content is a pure function of the
+    """Deterministic looping IQ byte stream: `dense_reps` tilings of the
+    dense bytes, the fleet's frames, then `quiet_bufs` buffer-lengths of
+    dead air (127s), repeated.  Byte content is a pure function of the
     stream offset, so a second instance with the same total_bytes replays
     the identical stream.  A rate cap (bytes/s) paces reads so a soak spans
     real wall time; a deadline (seconds from the first read) ends it.
@@ -208,9 +209,9 @@ class PatternSource:
     memory): a quiet stretch past the 60 s TTLs is never materialized."""
 
     def __init__(self, dense, total_bytes=None, rate_bytes_s=None, deadline_s=None,
-                 quiet_bufs=48, fleet_aircraft=0, fleet_steps=0):
+                 dense_reps=1, quiet_bufs=48, fleet_aircraft=0, fleet_steps=0):
         self.raw = np.asarray(dense, dtype=np.uint8)
-        self.dense_len = len(self.raw)
+        self.dense_len = dense_reps * len(self.raw)
         self.fleet = (fleet_iq_bytes(fleet_aircraft, fleet_steps)
                       if fleet_aircraft and fleet_steps
                       else np.empty(0, dtype=np.uint8))
@@ -231,9 +232,10 @@ class PatternSource:
         if p >= self.fleet_end:  # pure quiet
             return np.full(n, 127, dtype=np.uint8)
         parts = []
-        if p < self.dense_len:
-            take = min(n, self.dense_len - p)
-            parts.append(self.raw[p : p + take])
+        while n > 0 and p < self.dense_len:
+            q = p % len(self.raw)
+            take = min(n, len(self.raw) - q)
+            parts.append(self.raw[q : q + take])
             p += take
             n -= take
         if n > 0 and p < self.fleet_end:
@@ -278,6 +280,7 @@ def _source(spec: dict, paced: bool) -> PatternSource:
         total_bytes=spec.get("total_bytes"),
         rate_bytes_s=spec["rate"] if paced else None,
         deadline_s=spec.get("deadline_s") if paced else None,
+        dense_reps=spec.get("dense_reps", 1),
         quiet_bufs=spec["quiet_bufs"],
         fleet_aircraft=spec.get("fleet_aircraft", 0),
         fleet_steps=spec.get("fleet_steps", 0),
@@ -465,8 +468,9 @@ def make_spec(args, plane: str) -> dict:
     """The pattern, pipeline and cadence of one plane from the options."""
     spec = {
         "batch": args.batch, "groups": args.groups, "seed": args.seed,
-        "dense_blocks": DENSE_BLOCKS, "quiet_bufs": args.quiet_bufs,
-        "fleet_aircraft": FLEET[0], "fleet_steps": FLEET[1],
+        "dense_blocks": DENSE_BLOCKS, "dense_reps": args.dense_reps,
+        "quiet_bufs": args.quiet_bufs,
+        "fleet_aircraft": args.fleet_aircraft, "fleet_steps": args.fleet_steps,
         "rate": args.rate_mb_s * 1e6,
         "deadline_s": (args.wall_minutes if plane == "wall" else args.wall_messages) * 60,
     }
@@ -480,7 +484,7 @@ def _describe(plane: str, spec: dict) -> str:
     rate = spec["rate"]
     quiet_s = spec["quiet_bufs"] * DATA_LEN_BYTES / rate
     return (f"{plane} plane: period {src.fleet_end / rate:.1f} s dense "
-            f"({spec['dense_blocks']} planted blocks + "
+            f"({spec['dense_reps']} x {spec['dense_blocks']} planted blocks + "
             f"{spec['fleet_aircraft']}-aircraft fleet x{spec['fleet_steps']} steps) + "
             f"{quiet_s:.1f} s quiet (TTL 60 s: "
             f"{'crossed each period' if quiet_s > 60 else 'NOT crossed by the quiet air'}), "
@@ -768,19 +772,34 @@ def parser() -> argparse.ArgumentParser:
                     help="soak the messages plane (run_device -> hub -> tracker, "
                     "SBS, data.json) for this many minutes (with --wall-minutes: "
                     "side by side)")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; no card is an error) or cpu")
+    add_device_options(ap)
     ap.add_argument("--batch", type=int, default=16, help="buffers per batch")
     ap.add_argument("--groups", type=int, default=8, help="batches per dispatch group")
     ap.add_argument("--rate-mb-s", type=float, default=RADIO_RATE_MB_S,
                     help="ingest pacing (default: the radio's 4 MB/s)")
     ap.add_argument("--seed", type=int, default=1, help="seed of the dense air")
+    ap.add_argument("--dense-reps", type=int, default=1,
+                    help=f"tilings of the dense air ({DENSE_BLOCKS} planted blocks, "
+                    f"{DENSE_BLOCKS * DATA_LEN_BYTES / 1e6:.2f} MB, "
+                    f"{DENSE_BLOCKS * DATA_LEN_BYTES / (RADIO_RATE_MB_S * 1e6):.2f} s at "
+                    f"{RADIO_RATE_MB_S:g} MB/s) per pattern period.  The JAX tool's 900 "
+                    "tilings of modes1.bin are about 20 s of dense air at its 32 MB/s: "
+                    "--dense-reps 20 here")
     ap.add_argument("--quiet-bufs", type=int, default=1024,
                     help="dead-air buffers per pattern period (1024: 67 s at 4 MB/s, "
-                    "past the 60 s TTLs, so every period crosses an eviction horizon)")
+                    "past the 60 s TTLs, so every period crosses an eviction horizon; "
+                    "the JAX tool's 9216 are 75 s at its 32 MB/s)")
+    ap.add_argument("--fleet-aircraft", type=int, default=8,
+                    help="synthetic aircraft in the fleet segment of each period (CPR "
+                    "pairs, surface positions, velocities, idents, AP-addressed DF4); "
+                    "0 leaves the fleet out")
+    ap.add_argument("--fleet-steps", type=int, default=6,
+                    help="fleet timesteps per pattern period; 0 leaves the fleet out")
     ap.add_argument("--oracle-spec", help=argparse.SUPPRESS)
     ap.add_argument("--oracle-out", help=argparse.SUPPRESS)
-    ap.add_argument("--oracle-plane", choices=PLANES, help=argparse.SUPPRESS)
+    ap.add_argument("--oracle-plane", choices=PLANES, default="wall", help=argparse.SUPPRESS)
+    ap.add_argument("--oracle-messages", action="store_const", dest="oracle_plane",
+                    const="messages", help=argparse.SUPPRESS)
     ap.add_argument("--oracle-threads", type=int, default=0, help=argparse.SUPPRESS)
     return ap
 
@@ -790,7 +809,7 @@ def main(argv=None) -> int:
 
     ap = parser()
     args = ap.parse_args(argv)
-    args.device = resolve_device(args.device)
+    args.device = resolve_device(device_option(ap, args))
 
     if args.oracle_spec:
         return oracle_main(args.oracle_spec, args.oracle_out, args.oracle_plane,

@@ -264,3 +264,17 @@ def test_main_on_cpu(capture, monkeypatch, capsys, tmp_path):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["value"] == 0 and "FileNotFoundError" in rec["error"]
     assert "last_successful" not in rec
+
+
+@pytest.mark.parametrize("skip,cold_mb", [(None, 7), ("", 7), ("1", 0)])
+def test_skip_cold_environment_is_cold_mb_0(monkeypatch, capsys, skip, cold_mb):
+    """$DUMP1090_BENCH_SKIP_COLD, read as bench.py reads it (any non-empty
+    value), skips the cold file as --cold-mb 0 does."""
+    if skip is None:
+        monkeypatch.delenv("DUMP1090_BENCH_SKIP_COLD", raising=False)
+    else:
+        monkeypatch.setenv("DUMP1090_BENCH_SKIP_COLD", skip)
+    seen = []
+    monkeypatch.setattr(tbench, "run", lambda args, dev: seen.append(args.cold_mb) or {})
+    assert tbench.main(["--device", "cpu", "--cold-mb", "7"]) == 0
+    assert seen == [cold_mb] and capsys.readouterr().out.strip() == "{}"

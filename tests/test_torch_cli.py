@@ -249,6 +249,26 @@ def test_cli_refuses_what_is_not_ported(capsys):
     assert "Unknown or not enough arguments" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("argv,rc", [(["--help"], 0), (["--bogus"], 1)])
+def test_help_equals_jax_up_to_its_help_line(argv, rc, capsys):
+    """--help, and the help an unknown flag prints, list the reference's
+    flags in the JAX CLI's order (showHelp, dump1090.c:2789-2826), byte for
+    byte up to the `--help` line; the port's own flags follow."""
+    from dump1090_tpu.cli import parse_args as jax_parse_args
+    from dump1090_tpu_torch.cli import parse_args
+
+    outs = []
+    for parse in (jax_parse_args, parse_args):
+        with pytest.raises(SystemExit) as e:
+            parse(list(argv))
+        assert e.value.code == rc
+        outs.append(capsys.readouterr())
+    (jax_out, jax_err), (out, err) = outs
+    end = jax_out.index("\n", jax_out.index("--help ")) + 1
+    assert out[:end] == jax_out[:end] and err == jax_err
+    assert out.index("--debug <flags>") > out.index("--snip <level>")
+
+
 def _main_inprocess(main, argv) -> bytes:
     """A CLI's main in this process, stdout captured as bytes; the signal
     handlers it installs are put back."""

@@ -4,9 +4,15 @@ mesh, the timeline's placement, the sharded candidates against the JAX
 package's multihost helpers, and a real two-process run over gloo in which
 the time axis crosses the process boundary (each process holds 4 shards of
 a global (1, 8) mesh; rank 0 checks the all-gathered candidates against an
-unsharded scan and prints MULTIHOST PASS).  Tolerance: exact equality."""
+unsharded scan and prints MULTIHOST PASS), once more with --bench over a
+65,536-sample timeline (rank 0 prints MULTIHOST BENCH).  The worker's
+flags against the JAX tools/multihost_worker.py: --devices-per-proc is
+--local-shards, and over the capture $DUMP1090_FIXTURE names both workers
+find the same candidates and print the same BENCH fields.  Tolerance:
+exact equality."""
 
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -65,14 +71,17 @@ def test_global_mesh_and_shard_timeline_single_process():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
-def test_two_process_gloo_decode():
+WORKER = [sys.executable, "-m", "dump1090_tpu_torch.parallel.multihost_worker"]
+
+
+def _two_processes(*flags: str) -> list:
+    """Both ranks of a real two-process gloo session, 4 shards each:
+    [(rc, stdout, stderr)] by rank."""
     port = str(_free_port())
-    worker = [sys.executable, "-m", "dump1090_tpu_torch.parallel.multihost_worker"]
     # one compute thread a process: the test workers beside it keep theirs
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [
-        subprocess.Popen([*worker, str(rank), "2", port, "--local-shards", "4",
-                          "--device", "cpu"],
+        subprocess.Popen([*WORKER, str(rank), "2", port, "--device", "cpu", *flags],
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
                          env=env)
         for rank in (0, 1)
@@ -87,5 +96,76 @@ def test_two_process_gloo_decode():
             p.kill()
     for rc, out, err in outs:
         assert rc == 0, f"worker failed rc={rc}\nstdout:\n{out}\nstderr:\n{err}"
+    return outs
+
+
+def test_two_process_gloo_decode():
+    outs = _two_processes("--local-shards", "4")
     assert "MULTIHOST PASS: 2 processes x 4 shards, mesh dp=1 sp=8 on cpu" in outs[0][1]
     assert outs[1][1] == ""
+
+
+def test_two_process_gloo_bench():
+    """--bench: every rank runs the step, rank 0 alone prints the time."""
+    outs = _two_processes("--devices-per-proc", "4", "--bench", "--steps", "2",
+                          "--total", "65536")
+    out = outs[0][1]
+    assert "MULTIHOST PASS: 2 processes x 4 shards, mesh dp=1 sp=8 on cpu" in out
+    m = re.search(r"^MULTIHOST BENCH ([0-9.]+) s/step total=65536 sp=8 nproc=2$", out, re.M)
+    assert m and float(m.group(1)) > 0, out
+    assert outs[1][1] == ""
+
+
+def _run_worker(argv: list, env: dict) -> str:
+    r = subprocess.run(argv, capture_output=True, text=True, cwd=REPO, timeout=180,
+                       env=dict(os.environ, OMP_NUM_THREADS="1", **env))
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    return r.stdout
+
+
+def test_devices_per_proc_is_local_shards(monkeypatch, capsys):
+    """The JAX name and the port's older one set the same shards; at world
+    size 1 on the CPU the two runs print the same line."""
+    from dump1090_tpu_torch.parallel import multihost_worker
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.setenv(k, "")  # the worker sets them; put back after
+    monkeypatch.setenv("DUMP1090_FIXTURE", str(REPO / "no-such-capture.bin"))
+    lines = []
+    for flag in ("--devices-per-proc", "--local-shards"):
+        assert multihost_worker.main(["0", "1", "0", flag, "4", "--device", "cpu",
+                                      "--total", "32768"]) == 0
+        lines.append(capsys.readouterr().out)
+    assert lines[0] == lines[1]
+    assert "MULTIHOST PASS: 1 processes x 4 shards, mesh dp=1 sp=4 on cpu" in lines[0]
+
+
+def test_fixture_and_bench_equal_the_jax_worker(tmp_path):
+    """Over the capture $DUMP1090_FIXTURE names (its first buffer, tiled to
+    --total), the port's worker finds the JAX worker's candidates and prints
+    its BENCH fields; a missing file leaves the planted buffer."""
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    fixture = tmp_path / "fixture.bin"
+    fixture.write_bytes(planted_capture(1, 40, seed=7, noise_sigma=3.0)[0])
+    flags = ["--devices-per-proc", "4", "--bench", "--steps", "2", "--total", "65536"]
+    jax_out = _run_worker([sys.executable, str(REPO / "tools" / "multihost_worker.py"), "0",
+                           "1", str(_free_port()), *flags],
+                          {"JAX_PLATFORMS": "cpu", "DUMP1090_FIXTURE": str(fixture)})
+    outs = {name: _run_worker([*WORKER, "0", "1", str(_free_port()), "--device", "cpu", *flags],
+                              {"DUMP1090_FIXTURE": str(path)})
+            for name, path in (("fixture", fixture), ("planted", tmp_path / "missing.bin"))}
+
+    def candidates(out: str) -> int:
+        m = re.search(r"MULTIHOST PASS: .* (\d+) candidates == unsharded (\d+)", out)
+        assert m and m.group(1) == m.group(2), out
+        return int(m.group(1))
+
+    def bench_fields(out: str) -> str:
+        m = re.search(r"^MULTIHOST BENCH [0-9.]+ s/step (.*)$", out, re.M)
+        assert m, out
+        return m.group(1)
+
+    assert candidates(outs["fixture"]) == candidates(jax_out)
+    assert candidates(outs["planted"]) != candidates(jax_out)
+    assert bench_fields(outs["fixture"]) == bench_fields(jax_out) == "total=65536 sp=4 nproc=1"

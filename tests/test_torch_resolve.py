@@ -193,6 +193,71 @@ def test_demod_resolve_group_packed_matches_jax(fix, aggressive):
     assert count_t.sum() > 0 and stats_t[:, 5].sum() > 0  # emitted, and fixed
 
 
+def _prefilled_cache():
+    rng = np.random.default_rng(0)
+    ca0 = np.zeros(ICAO_CACHE_LEN, np.int32)
+    ca0[rng.integers(0, ICAO_CACHE_LEN, 50)] = rng.integers(1, 1 << 24, 50)
+    return ca0, np.full(ICAO_CACHE_LEN, NOW - 10, np.int32)
+
+
+def _both_groups(xg, **kw):
+    """The same group through the JAX package (its XLA walk) and the port,
+    with the keywords given: (JAX arrays, the port's arrays), numpy."""
+    ca0, ct0 = _prefilled_cache()
+    want = jr.demod_resolve_group(
+        jnp.asarray(xg), jnp.asarray(ca0), jnp.asarray(ct0), NOW, True, False,
+        scan_len=SCAN, pallas=False, **kw)
+    got = tr.demod_resolve_group(
+        torch.from_numpy(xg), torch.from_numpy(ca0), torch.from_numpy(ct0), NOW, True, False,
+        scan_len=SCAN, **kw)
+    return [np.asarray(a) for a in want], [a.numpy() for a in got]
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_demod_resolve_group_defaults_match_jax(packed):
+    """crcok_only left to each package's default (the good-CRC decodes
+    only): every output array equal, rows past the counts included."""
+    xg = _group_input(4, 2, 2)
+    kw = (dict(max_out_short=256, max_out_long=256) if packed else dict(max_out=512))
+    want, got = _both_groups(xg, max_candidates=64, packed=packed, **kw)
+    assert len(got) == len(want) == (8 if packed else 7)
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"output {k}")
+    every, _ = _both_groups(xg, max_candidates=64, packed=packed, crcok_only=False, **kw)
+    assert (got[1] > 0).all() and (every[1] > got[1]).all()  # bad-CRC decodes left out
+    if not packed:
+        meta = got[3][got[3] >= 0]
+        assert meta.size == got[1].sum() and ((meta & tr.META_CRCOK) != 0).all()
+
+
+@pytest.mark.parametrize("caps", ["fit", "short_overflow"])
+def test_demod_resolve_group_packed_every_decode_matches_jax(caps):
+    """packed=True, crcok_only=False packs every attempted decode, good and
+    bad CRC, as the JAX package does: the same exact counts and the same
+    rows up to each cap, also where the short rows overflow theirs."""
+    xg = _group_input(4, 2, 2)
+    mos = 512 if caps == "fit" else 4
+    want, got = _both_groups(xg, max_candidates=256, packed=True, crcok_only=False,
+                             max_out_short=mos, max_out_long=512)
+    names = ("n", "count", "count_long", "shorts", "longs", "stats", "cache_addr", "cache_ts")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    count, clong = got[1], got[2]
+    good, _ = _both_groups(xg, max_candidates=256, packed=True, max_out_short=mos,
+                           max_out_long=512)
+    assert (count > good[1]).all() and (clong > good[2]).all()
+    if caps == "fit":
+        assert (count - clong <= mos).all() and (clong <= 512).all()
+        for g in range(xg.shape[0]):
+            msg_t, bits_t = tr.interleave_packed(count[g], clong[g], got[3][g], got[4][g])
+            msg_j, bits_j = jr.interleave_packed(count[g], clong[g], want[3][g], want[4][g])
+            np.testing.assert_array_equal(msg_t, msg_j)
+            np.testing.assert_array_equal(bits_t, bits_j)
+            assert msg_t.shape[0] == count[g]
+    else:
+        assert (count - clong > mos).all()  # the overflow the caller detects by count
+
+
 def test_group_entry_guards():
     xg = torch.full((1, 1, 1000), 127, dtype=torch.uint8)
     z = torch.zeros(ICAO_CACHE_LEN, dtype=torch.int32)

@@ -255,7 +255,8 @@ def test_resolve_candidate_segments_equal_jax(streams, name, mode):
         assert int(got[3][0]) < int(nseg.sum())  # valid_preamble: covered ones did not run
 
 
-@pytest.mark.parametrize("crcok_only,packed", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("crcok_only,packed", [(False, False), (True, False), (True, True),
+                                               (False, True)])
 def test_demod_resolve_batch_equal_jax(air, crcok_only, packed):
     data, _ = air
     stream = np.concatenate([np.full(476, 127, np.uint8), np.frombuffer(data, np.uint8)] * 3)
@@ -275,12 +276,28 @@ def test_demod_resolve_batch_equal_jax(air, crcok_only, packed):
         np.testing.assert_array_equal(g, w, err_msg=f"output {k}")
 
 
-def test_demod_resolve_batch_refuses_packed_with_bad_crc():
-    x = torch.full((1, BUF_SAMPLES * 2), 127, dtype=torch.uint8)
-    z = torch.zeros(ICAO_CACHE_LEN, dtype=torch.int32)
-    with pytest.raises(ValueError, match="good-CRC"):
-        tr.demod_resolve_batch(x, z, z, NOW, True, False, scan_len=SCAN_POSITIONS,
-                               max_candidates=16, crcok_only=False, packed=True)
+def test_demod_resolve_batch_refuses_packed_with_bad_crc(air):
+    """The packed emission with bad-CRC decodes is no longer refused: as in
+    the JAX package, demod_resolve_batch(packed=True, crcok_only=False)
+    packs every attempted decode.  With caps that both overflow, the exact
+    counts and the rows up to each cap are JAX's."""
+    _, bufs = air
+    bufs = np.ascontiguousarray(bufs[:2])
+    z = np.zeros(ICAO_CACHE_LEN, np.int32)
+    kw = dict(scan_len=SCAN_POSITIONS, max_candidates=256, crcok_only=False, packed=True,
+              max_out_short=8, max_out_long=16)
+    want = jax.device_get(jr.demod_resolve_batch(
+        jnp.asarray(bufs), jnp.asarray(z), jnp.asarray(z), NOW, True, False, **kw))
+    got = tr.demod_resolve_batch(torch.from_numpy(bufs), torch.from_numpy(z),
+                                 torch.from_numpy(z), NOW, True, False, **kw)
+    for k, (g, w) in enumerate(zip(_np(got), _np(want))):
+        np.testing.assert_array_equal(g, w, err_msg=f"output {k}")
+    count, clong = int(got[1]), int(got[2])
+    assert count - clong > 8 and clong > 16
+    good = tr.demod_resolve_batch(torch.from_numpy(bufs), torch.from_numpy(z),
+                                  torch.from_numpy(z), NOW, True, False,
+                                  **dict(kw, crcok_only=True))
+    assert count > int(good[1])
 
 
 def test_device_mesh_defaults(monkeypatch):

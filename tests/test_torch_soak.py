@@ -15,7 +15,10 @@ run is not vacuous: its clock crosses the 60 s TTL, the pipeline shrinks
 max_candidates to 64 on the quiet air and grows it back on the next dense
 air, and the messages plane evicts aircraft.  The tool's entry point runs
 both planes side by side on the CPU and refuses to run without a card
-unless the CPU is named.  Tolerance: exact equality."""
+unless the CPU is named.  The pattern flags (--dense-reps, --fleet-aircraft,
+--fleet-steps) reach the oracle's spec and give the JAX tool's stream, and
+--oracle-messages names the messages plane as in the JAX tool.  Tolerance:
+exact equality."""
 
 import subprocess
 import sys
@@ -69,6 +72,52 @@ def test_pattern_source_reads_the_period_by_slices():
     got = b"".join(iter(lambda: src.read(300_001), b""))
     want = np.concatenate([period, period, period[:1000]]).tobytes()
     assert got == want and src.pos == len(want)
+
+
+def test_pattern_flags_give_the_stream_the_oracle_replays(jsoak, monkeypatch, tmp_path):
+    """--dense-reps 2 tiles the 16 dense blocks twice a period and
+    --fleet-aircraft 0 leaves the fleet out: the period has the expected
+    length, and the spec's JSON (what the CPU oracle reads) and the JAX
+    tool's PatternSource over the same dense bytes give the same stream.
+    With no flags the spec is the stream of before: one tiling, an
+    8-aircraft fleet over 6 steps."""
+    import json
+
+    dense = tsoak.dense_bytes(1, tsoak.DENSE_BLOCKS)
+    args = tsoak.parser().parse_args(["--wall-minutes", "1", "--dense-reps", "2",
+                                      "--fleet-aircraft", "0", "--quiet-bufs", "4"])
+    spec = tsoak.make_spec(args, "wall")
+    assert (spec["dense_reps"], spec["fleet_aircraft"], spec["fleet_steps"]) == (2, 0, 6)
+    src = tsoak._source(spec, paced=False)
+    assert src.dense_len == src.fleet_end == 2 * len(dense)
+    assert src.period_len == 2 * len(dense) + 4 * DATA_LEN_BYTES
+    total = src.period_len + 3 * len(dense) // 2  # into the next period's second tiling
+    src.total = total
+    got = b"".join(iter(lambda: src.read(1_000_003), b""))
+    period = np.concatenate([dense, dense, np.full(4 * DATA_LEN_BYTES, 127, np.uint8)])
+    assert got == np.concatenate([period, period])[:total].tobytes()
+    replayed = tsoak._source(json.loads(json.dumps(dict(spec, total_bytes=total))), paced=False)
+    assert b"".join(iter(lambda: replayed.read(262_144), b"")) == got
+    fixture = tmp_path / "dense.bin"
+    dense.tofile(fixture)
+    monkeypatch.setattr(jsoak, "FIXTURE", str(fixture))
+    jsrc = jsoak.PatternSource(total_bytes=total, dense_reps=2, quiet_bufs=4,
+                               fleet_aircraft=0, fleet_steps=6)
+    assert jsrc.period_len == src.period_len
+    assert b"".join(iter(lambda: jsrc.read(524_288), b"")) == got
+
+    default = tsoak.make_spec(tsoak.parser().parse_args(["--wall-minutes", "1"]), "wall")
+    assert (default["dense_reps"], default["fleet_aircraft"], default["fleet_steps"]) == (1, 8, 6)
+    src = tsoak._source(dict(default, quiet_bufs=1), paced=False)
+    assert src.period_len == len(dense) + len(tsoak.fleet_iq_bytes(8, 6)) + DATA_LEN_BYTES
+
+
+@pytest.mark.parametrize("argv,plane", [([], "wall"), (["--oracle-messages"], "messages"),
+                                        (["--oracle-plane", "messages"], "messages")])
+def test_oracle_messages_is_the_jax_spelling_of_the_messages_plane(argv, plane):
+    args = tsoak.parser().parse_args(["--oracle-spec", "s.json", "--oracle-out", "o", *argv])
+    assert args.oracle_plane == plane
+    assert "--oracle-messages" not in tsoak.parser().format_help()  # internal
 
 
 def _fake_time(monkeypatch, step: float) -> None:

@@ -1,7 +1,8 @@
 """The port's multi-stream resolver and unpacked emission against the JAX
 package on the CPU: the plain multi-stream walk against the Pallas streams
 kernel in interpret mode and the XLA scan per stream,
-demod_resolve_streams, demod_resolve_group(packed=False), and the dispatch
+demod_resolve_streams, demod_resolve_group(packed=False) with crcok_only
+either way, and the dispatch
 tiling bound.  Exact equality throughout: the pipeline is integer end to
 end."""
 
@@ -187,6 +188,8 @@ def test_demod_resolve_streams_matches_jax(crcok_only):
             np.testing.assert_array_equal(msg_d[s, :c], msg_j[s, :c])
 
 
+# crcok_only passed to both packages; with True, the device-side filter is
+# also held against the full emission filtered on the host
 @pytest.mark.parametrize("crcok_only", [False, True])
 def test_demod_resolve_group_unpacked_matches_jax(crcok_only):
     xg = _capture_bufs(4, 4).reshape(2, 2, -1)
@@ -197,23 +200,27 @@ def test_demod_resolve_group_unpacked_matches_jax(crcok_only):
         scan_len=SCAN, max_candidates=mc, max_out=mo, crcok_only=crcok_only,
         pallas=False, packed=False,
     )
-    got = tr.demod_resolve_group(
-        torch.from_numpy(xg), *_torch(ca0, ct0), NOW, True, True,
-        scan_len=SCAN, max_candidates=mc, max_out=mo, packed=False,
-    )
+
+    def port(only):
+        return [a.numpy() for a in tr.demod_resolve_group(
+            torch.from_numpy(xg), *_torch(ca0, ct0), NOW, True, True,
+            scan_len=SCAN, max_candidates=mc, max_out=mo, packed=False, crcok_only=only,
+        )]
+
+    full = port(False)
+    got = port(True) if crcok_only else full
     assert len(got) == len(want) == 7
-    got = [a.numpy() for a in got]
-    assert (got[1] < mo).all()
-    meta = got[3]
+    assert (full[1] < mo).all()
+    meta = full[3]
     assert ((meta >= 0) & ((meta & tr.META_PASS) != 0)).any()  # pass-2 emissions
     want = [np.asarray(b) for b in want]
-    if crcok_only:
-        got[1], got[2], got[3] = _crcok_rows(got[1], got[2], got[3])
-        # rows past the host-filtered count are not the device filter's
-        for g in range(2):
-            c = int(want[1][g])
-            np.testing.assert_array_equal(got[2][g, :c], want[2][g, :c])
-        got[2], want[2] = got[2][:, :0], want[2][:, :0]
     names = ("n", "count", "msg", "meta", "stats", "cache_addr", "cache_ts")
     for name, a, b in zip(names, got, want):
         np.testing.assert_array_equal(a, b, err_msg=name)
+    if crcok_only:
+        count_f, msg_f, meta_f = _crcok_rows(*full[1:4])
+        np.testing.assert_array_equal(count_f, got[1])
+        np.testing.assert_array_equal(meta_f, got[3])
+        for g in range(2):
+            c = int(got[1][g])
+            np.testing.assert_array_equal(msg_f[g, :c], got[2][g, :c])
