@@ -60,6 +60,7 @@ from ..ops.resolve import (
     interleave_packed,
     max_candidates_cap,
 )
+from ..utils import spans
 from .decoder import (
     STAT_FIELDS,
     DecoderConfig,
@@ -231,9 +232,13 @@ class DemodPipeline:
         formats hex."""
         batches = self._device_batches(stream, packed=True)
         try:
-            for count, count_long, shorts, longs in batches:
-                msg, bits = interleave_packed(count, count_long, shorts, longs)
-                yield raw_lines_from_fields(msg, bits, np.ones(msg.shape[0], dtype=bool))
+            for group, b, (count, count_long, shorts, longs) in batches:
+                with spans.span("pipeline.format", group, b, count):
+                    msg, bits = interleave_packed(count, count_long, shorts, longs)
+                    lines = raw_lines_from_fields(msg, bits, np.ones(msg.shape[0], dtype=bool))
+                # the caller's time with this batch
+                with spans.span("pipeline.consumer", group, b, count):
+                    yield lines
         finally:
             batches.close()
 
@@ -261,11 +266,12 @@ class DemodPipeline:
         this returns."""
         batches = self._device_batches(stream, packed=False, buffers=buffers)
         try:
-            for meta_h, msg_h in batches:
-                mms = messages_from_device_arrays(msg_h, meta_h)
+            for group, b, (meta_h, msg_h) in batches:
+                with spans.span("pipeline.decode", group, b, len(meta_h)):
+                    mms = messages_from_device_arrays(msg_h, meta_h)
                 if not mms:
                     continue
-                with self._lock:
+                with spans.span("pipeline.emit", group, b, len(mms)), self._lock:
                     for mm in mms:
                         emit(mm)
         finally:
@@ -275,14 +281,16 @@ class DemodPipeline:
         """Dispatch GROUPS of batches chained through the device-resident
         ICAO cache, fetch each group's emissions in one transfer, detect
         overflow by exact counts and replay from the pre-group state with
-        sticky shape growth.  Yields per batch (count, count_long, shorts,
-        longs) when packed (see ops.resolve.interleave_packed), else
-        (meta[count], msg[count, 14]).  The buffers come from `stream`, or
-        from the iterable `buffers` when given (a live source: no preload,
-        auto depth 1).  The device cache is synced back to the host cache
-        when the generator ends or is closed only, so raw network input
-        decoded on the host meanwhile sees the host cache as it was before
-        the decode; stats accumulate into self.stats.
+        sticky shape growth.  Yields per batch (group, batch, payload): the
+        group's sequence number (utils.spans), the batch's index in it, and
+        (count, count_long, shorts, longs) when packed (see
+        ops.resolve.interleave_packed), else (meta[count], msg[count, 14]).
+        The buffers come from `stream`, or from the iterable `buffers` when
+        given (a live source: no preload, auto depth 1).  The device cache
+        is synced back to the host cache when the generator ends or is
+        closed only, so raw network input decoded on the host meanwhile
+        sees the host cache as it was before the decode; stats accumulate
+        into self.stats.
 
         Clock granularity: `now` is sampled once per dispatch group, like
         the JAX package's device path."""
@@ -302,19 +310,22 @@ class DemodPipeline:
         ca = torch.as_tensor(self.cache.addr.astype(np.int64).astype(np.int32), device=dev)
         ct = torch.as_tensor(np.clip(self.cache.ts, 0, 2**31 - 1).astype(np.int32), device=dev)
 
-        def dispatch(xg, ca, ct):
-            # packed (the raw path): good-CRC decodes only; unpacked
-            # (run_device): every attempted decode, as the hub needs
-            out = demod_resolve_group(
-                xg, ca, ct, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
-                scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
-                max_candidates=self._mc, max_out=self._mo,
-                max_out_short=self._mos, max_out_long=self._mol,
-                packed=packed, crcok_only=packed, front=self._front,
-            )
-            # start the fetch now: it runs as soon as the group finishes,
-            # while the next groups compute; the cache stays on the device
-            return _Fetch(out[:-2]), out[-2], out[-1]
+        def dispatch(xg, ca, ct, gid, n_bufs, replay=False):
+            with spans.span("pipeline.issue", gid, count=n_bufs):
+                if replay:
+                    spans.mark("pipeline.replay", gid, shapes_now())
+                # packed (the raw path): good-CRC decodes only; unpacked
+                # (run_device): every attempted decode, as the hub needs
+                out = demod_resolve_group(
+                    xg, ca, ct, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
+                    scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
+                    max_candidates=self._mc, max_out=self._mo,
+                    max_out_short=self._mos, max_out_long=self._mol,
+                    packed=packed, crcok_only=packed, front=self._front,
+                )
+                # start the fetch now: it runs as soon as the group finishes,
+                # while the next groups compute; the cache stays on the device
+                return _Fetch(out[:-2]), out[-2], out[-1]
 
         # density adaptation: consecutive groups whose peaks sit far below
         # the shapes shrink them (quiet air stops paying dense-shaped cost);
@@ -343,14 +354,15 @@ class DemodPipeline:
         def finish(work):
             """Fetch one group; returns (per-batch payloads, replayed
             cache state or None)."""
-            xg, state_before, fetch, _, _, disp = work
+            xg, state_before, fetch, _, _, disp, gid, n_bufs = work
             # validate against the shapes this group was DISPATCHED with —
             # adapt_down may have shrunk them while it was in flight, and a
             # group that fit its own allocation is never replayed
             mc_d, mos_d, mol_d, mo_d = disp
             redo = None
             while True:
-                host = fetch.get()
+                with spans.span("pipeline.fetch.wait", gid, count=n_bufs):
+                    host = fetch.get()
                 n_h, count_h, stats_h = host[0], host[1], host[-1]
                 n_peak = int(n_h.max(initial=0))
                 if packed:
@@ -366,6 +378,7 @@ class DemodPipeline:
                     break
                 # grow the overflowing shape(s) and replay from the
                 # pre-group state (exact counts: loud, never silent)
+                before = shapes_now()
                 while self._mc < n_peak:
                     self._mc *= 4
                 if self._mc > mc_cap:
@@ -390,10 +403,15 @@ class DemodPipeline:
                     )
                 while self._mo < ct_peak:
                     self._mo *= 4
-                fetch, ca2, ct2 = dispatch(xg, *state_before)
+                if shapes_now() != before:
+                    spans.mark("pipeline.reshape", gid, shapes_now())
+                fetch, ca2, ct2 = dispatch(xg, *state_before, gid, n_bufs, replay=True)
                 mc_d, mos_d, mol_d, mo_d = shapes_now()
                 redo = (ca2, ct2)
+            before = shapes_now()
             adapt_down(n_h, cs_peak, cl_peak, ct_peak)
+            if shapes_now() != before:
+                spans.mark("pipeline.reshape", gid, shapes_now())
             for name, d in zip(STAT_FIELDS, stats_h.sum(axis=0).tolist()):
                 setattr(self.stats, name, getattr(self.stats, name) + d)
             if packed:
@@ -426,38 +444,39 @@ class DemodPipeline:
             it = iter(buffers)
         else:
             it = iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
-        # entries: (xg, state_before, fetch, ca_after, ct_after, shapes)
+        # entries: (xg, state_before, fetch, ca_after, ct_after, shapes, group id, buffers)
         pending: collections.deque = collections.deque()
         groups = self._ingest_groups(stream, it, ng, nb)
         # the cache state after the last group whose results were delivered
         delivered = (ca, ct)
 
-        def enqueue(xg, ca, ct):
-            fetch, ca2, ct2 = dispatch(xg, ca, ct)
-            pending.append((xg, (ca, ct), fetch, ca2, ct2, shapes_now()))
+        def enqueue(xg, ca, ct, gid, n_bufs, replay=False):
+            fetch, ca2, ct2 = dispatch(xg, ca, ct, gid, n_bufs, replay)
+            pending.append((xg, (ca, ct), fetch, ca2, ct2, shapes_now(), gid, n_bufs))
             return ca2, ct2
 
         try:
             while True:
                 item = next(groups, None)
                 if item is not None:
-                    xg, n_bufs = item
+                    xg, n_bufs, gid = item
                     self.samples_in += n_bufs * BLOCK_SAMPLES
-                    ca, ct = enqueue(xg, ca, ct)
+                    ca, ct = enqueue(xg, ca, ct, gid, n_bufs)
                 # keep `depth` groups in flight while the stream lives;
                 # drain everything at EOF
                 while len(pending) > (depth if item is not None else 0):
                     work = pending.popleft()
                     payloads, redo = finish(work)
                     delivered = redo or (work[3], work[4])
-                    yield from payloads
+                    for b, payload in enumerate(payloads):
+                        yield work[6], b, payload
                     if redo:  # shapes grew: replay EVERY in-flight group
                         # from the replayed state, in order
                         ca, ct = redo
-                        requeue = [w[0] for w in pending]
+                        requeue = [(w[0], w[6], w[7]) for w in pending]
                         pending.clear()
-                        for xg2 in requeue:
-                            ca, ct = enqueue(xg2, ca, ct)
+                        for xg2, gid2, n2 in requeue:
+                            ca, ct = enqueue(xg2, ca, ct, gid2, n2, replay=True)
                 if item is None:
                     return
         finally:
@@ -469,9 +488,10 @@ class DemodPipeline:
 
     def _ingest_groups(self, stream, it, ng: int, nb: int):
         """Generator of device-resident dispatch groups (xg uint8 (g, nb,
-        nbytes), n_bufs): the buffers framed by `it`, uploaded.  A group's
-        trailing batches that hold no buffer are not built: they would be
-        all no-signal (127) and carry zero candidates.
+        nbytes), n_bufs, the group's sequence number): the buffers framed by
+        `it`, uploaded.  A group's trailing batches that hold no buffer are
+        not built: they would be all no-signal (127) and carry zero
+        candidates.
 
         Three strategies: preload (regular files up to PRELOAD_CAP_BYTES,
         not looped or throttled) frames and uploads every group before the
@@ -483,14 +503,22 @@ class DemodPipeline:
         while the main thread dispatches and fetches g."""
         dev = self.device
 
-        def make_group(bufs):
-            g_real = -(-len(bufs) // nb)
-            xg = np.full((g_real, nb, bufs[0].shape[0]), 127, dtype=np.uint8)
-            xg.reshape(g_real * nb, -1)[: len(bufs)] = np.stack(bufs)
-            return torch.from_numpy(xg).to(dev), len(bufs)
+        def make_group(gid, bufs):
+            n = len(bufs)
+            with spans.span("pipeline.ingest.stack", gid, count=n):
+                g_real = -(-n // nb)
+                xg = np.full((g_real, nb, bufs[0].shape[0]), 127, dtype=np.uint8)
+                xg.reshape(g_real * nb, -1)[:n] = np.stack(bufs)
+            with spans.span("pipeline.ingest.upload", gid, count=n):
+                return torch.from_numpy(xg).to(dev), n, gid
 
         def next_bufs():
-            return list(itertools.islice(it, ng * nb))
+            # a file's read and framing; a live source's wait on the radio
+            gid = spans.next_group()
+            with spans.span("pipeline.ingest.source", gid) as s:
+                bufs = list(itertools.islice(it, ng * nb))
+                s.count = len(bufs)
+            return gid, bufs
 
         preload = False
         if (stream is not None and self.cfg.preload != "off" and not self.cfg.loop
@@ -504,17 +532,17 @@ class DemodPipeline:
         staged = preload and self.cfg.preload == "staged"
         if preload and not staged:
             groups = []
-            while bufs := next_bufs():
-                groups.append(make_group(bufs))
+            while (got := next_bufs())[1]:
+                groups.append(make_group(*got))
             yield from groups
             return
 
         first = None
         if staged:
-            bufs = next_bufs()
-            if not bufs:
+            got = next_bufs()
+            if not got[1]:
                 return
-            first = make_group(bufs)
+            first = make_group(*got)
         # staged: an unbounded queue, so the reader uploads the whole tail
         # while the first groups decode; streaming: one group of lookahead
         q: queue.Queue = queue.Queue(maxsize=0 if staged else 1)
@@ -539,8 +567,8 @@ class DemodPipeline:
                 with (torch.cuda.stream(upload_stream) if upload_stream is not None
                       else contextlib.nullcontext()):
                     while not stop.is_set():
-                        bufs = next_bufs()
-                        put(make_group(bufs) if bufs else None)
+                        gid, bufs = next_bufs()
+                        put(make_group(gid, bufs) if bufs else None)
                         if not bufs:
                             return
             except BaseException as e:  # surfaced on the consumer side
@@ -552,7 +580,10 @@ class DemodPipeline:
             if first is not None:
                 yield first
             while True:
-                item = q.get()
+                with spans.span("pipeline.ingest.wait") as s:
+                    item = q.get()
+                    if isinstance(item, tuple):
+                        s.count, s.group = item[1:]
                 if item is None:
                     return
                 if isinstance(item, BaseException):

@@ -220,7 +220,7 @@ def cold_file(raw: np.ndarray, target_mb: int, dev: torch.device) -> dict:
     try:
         t_open = time.perf_counter()
         with open(path, "rb") as f:
-            for count, _, _, _ in p._device_batches(f, packed=True):
+            for _, _, (count, _, _, _) in p._device_batches(f, packed=True):
                 if t_first is None:
                     t_first = time.perf_counter()
                     samples_at_first = p.samples_in

@@ -448,6 +448,24 @@ def test_tpu_profile_writes_a_trace(outputs, synth_path, tmp_path):
     assert any(e.get("name") == "aten::topk" or e.get("name") == "aten::cumsum" for e in events)
 
 
+def test_tpu_profile_holds_the_pipeline_spans(synth_path, tmp_path):
+    """--tpu-profile's Chrome trace of a small --ifile decode holds the
+    device pipeline's spans as annotations: each group's issue and fetch
+    wait, each batch's format (utils/spans.py)."""
+    import dump1090_tpu_torch.cli as tcli
+
+    prof = tmp_path / "prof"
+    _main_inprocess(tcli.main, ["--device", "cpu", "--tpu-device-resolve", "on", "--ifile",
+                                str(synth_path), "--raw", "--tpu-profile", str(prof)])
+    (trace,) = prof.glob("dump1090_tpu_torch.*.pt.trace.json")
+    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    for name in ("pipeline.issue", "pipeline.fetch.wait", "pipeline.format",
+                 "pipeline.ingest.stack", "pipeline.ingest.upload"):
+        assert name in names, name
+    assert names.count("pipeline.issue") == names.count("pipeline.fetch.wait")
+
+
 def test_tpu_backend_is_an_alias_of_device(outputs, synth_path, capsys):
     """--tpu-backend cpu runs as --device cpu; tpu (or any other name)
     exits 1 naming --device."""

@@ -214,7 +214,8 @@ def test_dispatch_ahead_auto_depth_and_no_preload_for_live_sources(capture, tmp_
                              device="cpu")
         want = list(itertools.islice(flat._device_batches(io.BytesIO(capture * 3),
                                                           packed=False), 6))
-        for (gm, gx), (wm, wx) in zip(batches, want):
+        for (_, gb, (gm, gx)), (_, wb, (wm, wx)) in zip(batches, want):
+            assert gb == wb
             np.testing.assert_array_equal(gm, wm)
             np.testing.assert_array_equal(gx, wx)
 
