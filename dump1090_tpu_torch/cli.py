@@ -65,10 +65,11 @@ HELP = """\
                          with the resolver on the host, 1 for stdin).
 --tpu-profile <dir>      Write a torch.profiler trace of the decode (host
                          and CUDA activity) to <dir> as a Chrome trace.
---tpu-dispatch-ahead <n> Dispatch groups held in flight before the oldest
-                         is fetched (0 = auto: 3 for seekable files, 1
-                         for stdin, live, looped or throttled input and
-                         under --tpu-preload staged; identical output).
+--tpu-dispatch-ahead <n> The most dispatch groups in flight; a group is
+                         fetched as soon as no next input waits (0 =
+                         auto: 3 for seekable files, 1 for stdin, live,
+                         looped or throttled input and under
+                         --tpu-preload staged; identical output).
 --tpu-preload <m>        auto|staged|off: upload a regular file to the
                          device before the first dispatch (auto), one
                          group and then the rest on a reader thread while

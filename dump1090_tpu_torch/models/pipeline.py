@@ -6,13 +6,15 @@ run_source_device, live buffers): the demodulator AND the sequential
 resolver run on the card.  Groups of
 `dispatch_groups` x `batch_buffers` buffers are uploaded, and each group
 runs ops.resolve.demod_resolve_group with the ICAO cache chained on the
-device from one group to the next.  Up to `dispatch_ahead` groups are in
-flight before the oldest is fetched: a group's small outputs are copied
-into pinned host memory with non-blocking copies and one CUDA event, so the
-host formats group k while the device computes k+1..k+depth.  Exact counts
-come back with the data; a group that overflowed its shapes grows them
-(sticky x4) and is replayed, with every group behind it, from the cache
-state it started from.
+device from one group to the next.  At most `dispatch_ahead` groups are in
+flight: the oldest is fetched once one more is issued, or as soon as no
+next input waits (a live source between buffers, a reader thread behind),
+so a live buffer's results never wait on the next buffer.  A group's small
+outputs are copied into pinned host memory with non-blocking copies and
+one CUDA event, so the host formats group k while the device computes
+k+1..k+depth.  Exact counts come back with the data; a group that
+overflowed its shapes grows them (sticky x4) and is replayed, with every
+group behind it, from the cache state it started from.
 
 Host resolve (run, run_source, messages, stream_records): the card
 demodulates `batch_buffers` buffers per dispatch (ops.demod.demod_batch, K1
@@ -98,8 +100,9 @@ class PipelineConfig:
     # message: the decode starts before the file is resident); "off" always
     # streams through a reader thread (one group of lookahead).
     preload: str = "auto"
-    # Dispatch groups in flight before the oldest is fetched.  0 = auto: 3
-    # for seekable sources under preload "auto" or "off"; 1 under "staged",
+    # The most dispatch groups in flight: the oldest is fetched once one
+    # more is issued, or as soon as no next input waits.  0 = auto: 3 for
+    # seekable sources under preload "auto" or "off"; 1 under "staged",
     # whose point is the first message, and for streams, live buffers and
     # looped or throttled sources, where two more groups of latency would
     # break the live cadence.  Output is identical at every depth.
@@ -134,6 +137,30 @@ class _Fetch:
         if self.event is not None:
             self.event.synchronize()
         return [t.numpy() for t in self.tensors]
+
+
+class _Groups:
+    """The dispatch groups of DemodPipeline._ingest_groups, in order, with
+    a probe that never blocks: ready() is true when the next group, or the
+    end of the input, can be taken at once.  That always holds for groups
+    in hand (a preloaded file's); groups from the reader thread (the staged
+    tail, streamed and live input) are ready once it has queued one."""
+
+    def __init__(self):
+        self.gen = None
+        self.queue: queue.Queue | None = None
+
+    def __iter__(self) -> _Groups:
+        return self
+
+    def __next__(self):
+        return next(self.gen)
+
+    def ready(self) -> bool:
+        return self.queue is None or not self.queue.empty()
+
+    def close(self) -> None:
+        self.gen.close()
 
 
 def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -249,7 +276,8 @@ class DemodPipeline:
         the live defaults (batch_buffers=1, dispatch_groups=1) buffer N+1 is
         uploaded on the ingest thread while buffer N resolves on the device,
         like the reference's rtlsdrCallback -> detectModeS hand-off
-        (dump1090.c:442-458, 2968-2990)."""
+        (dump1090.c:442-458, 2968-2990); buffer N is fetched while N+1 is
+        still on its way from the radio."""
         self.run_device(None, emit, buffers=buffers)
 
     def run_device(self, stream: BinaryIO | None, emit: Callable[[ModesMessage], None],
@@ -286,7 +314,10 @@ class DemodPipeline:
         (count, count_long, shorts, longs) when packed (see
         ops.resolve.interleave_packed), else (meta[count], msg[count, 14]).
         The buffers come from `stream`, or from the iterable `buffers` when
-        given (a live source: no preload, auto depth 1).  The device cache
+        given (a live source: no preload, auto depth 1).  At most `depth`
+        groups are in flight, and the oldest is fetched as soon as no next
+        group is ready (_Groups.ready), marked pipeline.fetch.early; with
+        input always ready, a group waits for `depth` more.  The device cache
         is synced back to the host cache when the generator ends or is
         closed only, so raw network input decoded on the host meanwhile
         sees the host cache as it was before the decode; stats accumulate
@@ -455,28 +486,39 @@ class DemodPipeline:
             pending.append((xg, (ca, ct), fetch, ca2, ct2, shapes_now(), gid, n_bufs))
             return ca2, ct2
 
+        def deliver(early=False):
+            """Fetch the oldest pending group and yield its batches."""
+            nonlocal ca, ct, delivered
+            work = pending.popleft()
+            if early:
+                spans.mark(spans.FETCH_EARLY, work[6])
+            payloads, redo = finish(work)
+            delivered = redo or (work[3], work[4])
+            for b, payload in enumerate(payloads):
+                yield work[6], b, payload
+            if redo:  # shapes grew: replay EVERY in-flight group
+                # from the replayed state, in order
+                ca, ct = redo
+                requeue = [(w[0], w[6], w[7]) for w in pending]
+                pending.clear()
+                for xg2, gid2, n2 in requeue:
+                    ca, ct = enqueue(xg2, ca, ct, gid2, n2, replay=True)
+
         try:
             while True:
+                # while no next input waits, fetch the oldest groups: the
+                # host would only block on the input meanwhile
+                while pending and not groups.ready():
+                    yield from deliver(early=True)
                 item = next(groups, None)
                 if item is not None:
                     xg, n_bufs, gid = item
                     self.samples_in += n_bufs * BLOCK_SAMPLES
                     ca, ct = enqueue(xg, ca, ct, gid, n_bufs)
-                # keep `depth` groups in flight while the stream lives;
+                # at most `depth` groups in flight while the stream lives;
                 # drain everything at EOF
                 while len(pending) > (depth if item is not None else 0):
-                    work = pending.popleft()
-                    payloads, redo = finish(work)
-                    delivered = redo or (work[3], work[4])
-                    for b, payload in enumerate(payloads):
-                        yield work[6], b, payload
-                    if redo:  # shapes grew: replay EVERY in-flight group
-                        # from the replayed state, in order
-                        ca, ct = redo
-                        requeue = [(w[0], w[6], w[7]) for w in pending]
-                        pending.clear()
-                        for xg2, gid2, n2 in requeue:
-                            ca, ct = enqueue(xg2, ca, ct, gid2, n2, replay=True)
+                    yield from deliver()
                 if item is None:
                     return
         finally:
@@ -486,21 +528,28 @@ class DemodPipeline:
             self.cache.addr[:] = delivered[0].cpu().numpy().astype(np.uint32)
             self.cache.ts[:] = delivered[1].cpu().numpy().astype(np.int64)
 
-    def _ingest_groups(self, stream, it, ng: int, nb: int):
-        """Generator of device-resident dispatch groups (xg uint8 (g, nb,
-        nbytes), n_bufs, the group's sequence number): the buffers framed by
-        `it`, uploaded.  A group's trailing batches that hold no buffer are
-        not built: they would be all no-signal (127) and carry zero
-        candidates.
+    def _ingest_groups(self, stream, it, ng: int, nb: int) -> _Groups:
+        """The device-resident dispatch groups (xg uint8 (g, nb, nbytes),
+        n_bufs, the group's sequence number) of the buffers framed by `it`,
+        uploaded, as a _Groups iterator.  A group's trailing batches that
+        hold no buffer are not built: they would be all no-signal (127) and
+        carry zero candidates.
 
         Three strategies: preload (regular files up to PRELOAD_CAP_BYTES,
         not looped or throttled) frames and uploads every group before the
         first dispatch; staged preload (the same files under preload
-        "staged") uploads the first group, yields it, and uploads the rest
-        on a reader thread into an unbounded queue; streaming (stdin, live
-        buffers with stream None, large files, --loop, throttled playback,
-        or preload "off") frames and uploads group g+1 on a reader thread
-        while the main thread dispatches and fetches g."""
+        "staged") uploads the first group, queues it, and uploads the rest
+        on a reader thread into the same unbounded queue; streaming (stdin,
+        live buffers with stream None, large files, --loop, throttled
+        playback, or preload "off") frames and uploads group g+1 on a
+        reader thread while the main thread dispatches and fetches g."""
+        groups = _Groups()
+        groups.gen = self._ingest(groups, stream, it, ng, nb)
+        return groups
+
+    def _ingest(self, groups: _Groups, stream, it, ng: int, nb: int):
+        """The generator behind _ingest_groups; hands `groups` the reader
+        thread's queue before the first group is taken from it."""
         dev = self.device
 
         def make_group(gid, bufs):
@@ -531,21 +580,21 @@ class DemodPipeline:
 
         staged = preload and self.cfg.preload == "staged"
         if preload and not staged:
-            groups = []
+            preloaded = []
             while (got := next_bufs())[1]:
-                groups.append(make_group(*got))
-            yield from groups
+                preloaded.append(make_group(*got))
+            yield from preloaded
             return
 
-        first = None
+        # staged: an unbounded queue, so the reader uploads the whole tail
+        # while the first groups decode; streaming: one group of lookahead
+        q: queue.Queue = queue.Queue(maxsize=0 if staged else 1)
         if staged:
             got = next_bufs()
             if not got[1]:
                 return
-            first = make_group(*got)
-        # staged: an unbounded queue, so the reader uploads the whole tail
-        # while the first groups decode; streaming: one group of lookahead
-        q: queue.Queue = queue.Queue(maxsize=0 if staged else 1)
+            q.put(make_group(*got))
+        groups.queue = q
         stop = threading.Event()
         # a decode on a non-default stream keeps its uploads, and their
         # allocations, on that stream: the reader uploads on the consumer's
@@ -577,8 +626,6 @@ class DemodPipeline:
         t = threading.Thread(target=reader, name="iq-upload", daemon=True)
         t.start()
         try:
-            if first is not None:
-                yield first
             while True:
                 with spans.span("pipeline.ingest.wait") as s:
                     item = q.get()

@@ -38,6 +38,9 @@ from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import record_function
 
 CAPACITY = 65536
+# the mark of a group fetched because no next input was ready
+# (models/pipeline.py), just before its fetch wait
+FETCH_EARLY = "pipeline.fetch.early"
 
 
 class Span(NamedTuple):

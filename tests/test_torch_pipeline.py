@@ -185,12 +185,16 @@ def test_dispatch_ahead_auto_depth_and_no_preload_for_live_sources(capture, tmp_
     one (and such sources stream through the reader thread instead of being
     preloaded: a looped file never ends), 1 under the staged preload (its
     point is the first message) and 1 for live buffers with no stream.  The
-    looped decode equals the file read three times over."""
+    looped decode equals the file read three times over.  The next group is
+    taken as ready, as a preloaded file's always is, so no group is fetched
+    early and the reader thread's pace cannot change the log."""
     import itertools
 
     from dump1090_tpu_torch.io import sources
+    from dump1090_tpu_torch.models import pipeline as pl
 
     monkeypatch.setattr(sources.time, "sleep", lambda s: None)
+    monkeypatch.setattr(pl._Groups, "ready", lambda self: True)
     f = tmp_path / "cap.bin"
     f.write_bytes(capture * (1 if kind == "looped" else 3))
     cfg = dict(batch_buffers=2, dispatch_groups=1, max_candidates=512,
@@ -218,6 +222,123 @@ def test_dispatch_ahead_auto_depth_and_no_preload_for_live_sources(capture, tmp_
             assert gb == wb
             np.testing.assert_array_equal(gm, wm)
             np.testing.assert_array_equal(gx, wx)
+
+
+def test_a_live_group_is_fetched_before_the_next_buffer_comes(capture, monkeypatch):
+    """Live buffers that come as a radio's do, the next one only once the
+    consumer holds the last one's batches: with no next input waiting, each
+    group is fetched as soon as it is issued (D F D F ...), and its batches
+    reach the consumer before the source gives the next buffer.  A pipeline
+    that fetched a group only once the next was issued would wait on the
+    radio while the radio waits on it, and the source would time out."""
+    import threading
+
+    from dump1090_tpu_torch.io.sources import iq_buffers
+
+    bufs = list(iq_buffers(io.BytesIO(capture)))
+    log = _dispatch_log(monkeypatch)
+    held = threading.Semaphore(0)
+
+    def radio():
+        for k, buf in enumerate(bufs):
+            log.append("R")
+            yield buf
+            # the next buffer (or the end) once buffer k is out
+            assert held.acquire(timeout=30), f"buffer {k} was not delivered in time"
+
+    p = DemodPipeline(PipelineConfig(max_candidates=512), clock=lambda: NOW, device="cpu")
+    got = []
+    for _, _, (meta, msg) in p._device_batches(None, packed=False, buffers=radio()):
+        log.append("Y")
+        got.append((meta.copy(), msg.copy()))
+        held.release()
+    assert log == ["R", "D", "F", "Y"] * len(bufs)
+    want = DemodPipeline(PipelineConfig(max_candidates=512), clock=lambda: NOW, device="cpu")
+    for (gm, gx), (_, _, (wm, wx)) in zip(got, want._device_batches(None, packed=False,
+                                                                     buffers=bufs), strict=True):
+        np.testing.assert_array_equal(gm, wm)
+        np.testing.assert_array_equal(gx, wx)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_input_always_ready_keeps_depth_groups_in_flight(capture, tmp_path, monkeypatch,
+                                                         depth):
+    """A preloaded file's next group is always ready: the early fetch never
+    engages, `depth` groups stay in flight behind each new one, and the
+    tail drains at the end."""
+    from dump1090_tpu_torch.utils import spans
+
+    f = tmp_path / "cap.bin"
+    f.write_bytes(capture * 2)
+    log = _dispatch_log(monkeypatch)
+    spans.RECORDER.clear()
+    p = DemodPipeline(PipelineConfig(max_candidates=512, dispatch_ahead=depth),
+                      clock=lambda: NOW, device="cpu")
+    with open(f, "rb") as fh:
+        n = sum(1 for _ in p._device_batches(fh, packed=False))
+    assert n == 10
+    assert log == ["D"] * (depth + 1) + ["F", "D"] * (n - depth - 1) + ["F"] * (depth + 1)
+    assert not any(s.name == spans.FETCH_EARLY for s in spans.RECORDER.spans())
+
+
+def _check_replays(recorded):
+    """Each group that overflowed is issued again at once from its own
+    start, and once it is delivered every group issued after it and still
+    pending is issued again, in order, before any new group; returns how
+    many groups those replays re-issued."""
+    main = [s for s in recorded if s.name in ("pipeline.issue", "pipeline.fetch.wait")]
+    marks = [s for s in recorded if s.name == "pipeline.replay"]
+    events = sorted(main, key=lambda s: s.start_ns)
+    pending, owed, redone, requeued = [], [], set(), 0
+    for k, s in enumerate(events):
+        replay = any(m.group == s.group and s.start_ns <= m.start_ns <= s.end_ns for m in marks)
+        if s.name == "pipeline.issue":
+            if owed:
+                assert replay and s.group == owed.pop(0)
+            elif replay:   # the group being finished, from its own start
+                assert s.group == pending[0] and events[k - 1].name == "pipeline.fetch.wait"
+                redone.add(s.group)
+            else:
+                pending.append(s.group)
+            continue
+        assert not owed and s.group == pending[0]
+        nxt = events[k + 1] if k + 1 < len(events) else None
+        if nxt is not None and nxt.name == "pipeline.issue" and nxt.group == s.group:
+            continue   # replayed: not delivered yet
+        pending.pop(0)
+        if s.group in redone:
+            owed = list(pending)
+            requeued += len(owed)
+    assert not owed and not pending and redone
+    return requeued
+
+
+@pytest.mark.parametrize("probe", ["early", "blocked"])
+@pytest.mark.parametrize("depth", [0, 1, 3])
+def test_the_early_fetch_keeps_output_and_replays(capture, jax_results, monkeypatch, depth,
+                                                  probe):
+    """With the early fetch forced (no next input is ever ready) and with it
+    blocked (the next always is), a forced overflow (max_candidates=16)
+    still replays the group from its own start and re-issues every group
+    still pending, in order; the lines, counters and cache equal the JAX
+    package's at every depth."""
+    from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.utils import spans
+
+    monkeypatch.setattr(pl._Groups, "ready", lambda self: probe == "blocked")
+    raw_j, stats_j, addr_j, ts_j = jax_results["fix"]
+    spans.RECORDER.clear()
+    p, raw = _port_decode(capture, True, False, dispatch_ahead=depth)
+    recorded = spans.RECORDER.spans()
+    assert raw == raw_j and _counters(p.stats) == stats_j
+    np.testing.assert_array_equal(p.cache.addr, addr_j)
+    np.testing.assert_array_equal(p.cache.ts, ts_j)
+    requeued = _check_replays(recorded)
+    early = [s.group for s in recorded if s.name == spans.FETCH_EARLY]
+    if probe == "early":   # nothing is pending behind a group being fetched
+        assert requeued == 0 and early
+    else:                  # the second group was in flight when the first replayed
+        assert requeued >= 1 and not early
 
 
 def test_run_device_emits_under_the_callers_lock(capture):

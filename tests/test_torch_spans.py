@@ -54,12 +54,26 @@ def _raw(data, mc=256):
     return b"".join(p.stream_raw_device(io.BytesIO(data))), p
 
 
-def _live(data, mc=256):
-    """run_source_device over pre-framed live buffers, one a dispatch."""
+def _live(data, mc=256, radio=None):
+    """run_source_device over pre-framed live buffers, one a dispatch; with
+    `radio`, they come as a radio's do: each after the last one's decode
+    (its span in `radio`, the recorder)."""
     p = DemodPipeline(PipelineConfig(max_candidates=mc), clock=lambda: NOW, device="cpu")
     got = []
-    p.run_source_device(list(iq_buffers(io.BytesIO(data))), lambda mm: got.append(vars(mm)))
+    bufs = list(iq_buffers(io.BytesIO(data)))
+    p.run_source_device(bufs if radio is None else _paced(bufs, radio),
+                        lambda mm: got.append(vars(mm)))
     return got, p
+
+
+def _paced(bufs, recorder):
+    """`bufs`, each (and the end) given once the buffer before it is decoded."""
+    for k, buf in enumerate(bufs):
+        yield buf
+        deadline = time.monotonic() + 30
+        while sum(s.name == "pipeline.decode" for s in recorder.spans()) <= k:
+            assert time.monotonic() < deadline, f"buffer {k} was not decoded in time"
+            time.sleep(0.001)
 
 
 def _counters(p):
@@ -113,8 +127,13 @@ def test_each_group_and_batch_of_the_file_path_records_its_spans_once(capture, r
     buffers = 0
     for g in issued:
         ss = groups[g]
-        assert Counter(s.name for s in ss if s.batch < 0) == Counter(GROUP)
+        # a group fetched while the reader was still behind carries the
+        # early-fetch mark, just before its wait
+        early = [s for s in ss if s.name == spans.FETCH_EARLY]
+        assert Counter(s.name for s in ss if s.batch < 0 and s not in early) == Counter(GROUP)
         one = {s.name: s for s in ss if s.batch < 0}
+        assert len(early) <= 1 and all(one["pipeline.issue"].end_ns <= e.start_ns
+                                       <= one["pipeline.fetch.wait"].start_ns for e in early)
         for name in GROUP[:3]:   # the ingest on the reader thread
             assert one[name].thread != main
         for name in GROUP[3:]:
@@ -148,18 +167,28 @@ def test_each_group_and_batch_of_the_file_path_records_its_spans_once(capture, r
 
 
 def test_each_live_buffer_records_its_decode_and_emit(capture, recorder):
-    got, p = _live(capture)
+    """Buffers paced as a radio's: no next input waits when a group has
+    been issued, so each is fetched early, marked, before the next issue."""
+    got, p = _live(capture, radio=recorder)
     recorded = recorder.spans()
     groups = _by_group(recorded)
     issued = [s.group for s in recorded if s.name == "pipeline.issue"]
     assert len(issued) == 5 and issued == sorted(issued)
-    for g in issued:
+    for k, g in enumerate(issued):
         names = Counter(s.name for s in groups[g])
-        assert names == Counter(GROUP + ("pipeline.decode", "pipeline.emit"))
-        decode, emit = (next(s for s in groups[g] if s.name == n)
-                        for n in ("pipeline.decode", "pipeline.emit"))
+        assert names == Counter(GROUP + ("pipeline.decode", "pipeline.emit", spans.FETCH_EARLY))
+        issue, early, wait, decode, emit = (
+            next(s for s in groups[g] if s.name == n)
+            for n in ("pipeline.issue", spans.FETCH_EARLY, "pipeline.fetch.wait",
+                      "pipeline.decode", "pipeline.emit"))
         assert decode.batch == emit.batch == 0 and decode.count == emit.count > 0
         assert decode.end_ns <= emit.start_ns
+        # the mark inside the group, after its issue and before its wait
+        assert early.start_ns == early.end_ns and early.thread == wait.thread
+        assert issue.end_ns <= early.start_ns <= wait.start_ns
+        if k + 1 < len(issued):   # fetched before the next group is issued
+            nxt = next(s for s in groups[issued[k + 1]] if s.name == "pipeline.issue")
+            assert wait.start_ns < nxt.start_ns
     assert sum(s.count for s in recorded if s.name == "pipeline.emit") == len(got)
     _check_nesting_and_order(recorded)
 
