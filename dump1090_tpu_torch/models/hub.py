@@ -48,10 +48,18 @@ class MessageHub:
         self.out = out or sys.stdout
         self.raw_sink = raw_sink      # broadcast to raw TCP clients
         self.sbs_sink = sbs_sink      # broadcast to SBS TCP clients
+        # display counters, for the benchmark's per-layer readings: plain
+        # increments, no clock read or allocation per message
+        self.crc_dropped = 0          # messages dropped for a bad CRC
+        self.displayed = 0            # messages written to `out`
+        self.written = 0              # characters written to `out`
 
     def use_message(self, mm: ModesMessage) -> None:
         cfg = self.cfg
-        if cfg.stats_only or not (not cfg.check_crc or mm.crcok):
+        if cfg.check_crc and not mm.crcok:
+            self.crc_dropped += 1
+            return
+        if cfg.stats_only:
             return
         if cfg.interactive or self.stats.http_requests > 0 or self.stats.sbs_connections > 0:
             a = self.tracker.receive(mm, check_crc=cfg.check_crc)
@@ -64,8 +72,11 @@ class MessageHub:
                 mm, raw=cfg.raw, onlyaddr=cfg.onlyaddr, check_crc=cfg.check_crc
             )
             self.out.write(text)
+            self.displayed += 1
+            self.written += len(text)
             if not cfg.raw and not cfg.onlyaddr:
                 self.out.write("\n")
+                self.written += 1
             if cfg.raw:
                 self.out.flush()  # provide data to the reader ASAP
         if cfg.net and self.raw_sink:
