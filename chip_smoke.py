@@ -10,8 +10,11 @@ words and on a forced-cut stream, with their batch and cut counts; K1,
 which reads the int32 magnitudes itself, at every path's shape, also
 against the two-step path it replaced, zero-padded uint16 rows
 and then the gather, with edge positions, and the `gather` stage's kernels
-read by the profiler), and drives the paths below over a synthetic dense
-capture, checking what comes out:
+read by the profiler; K4, both demod passes, at the live path's (1 x 256),
+a host batch's (16 x 256) and the file decode's (512 x 256) candidates with
+edge rows and int32 windows, and on the fuzz's and the soaks' recorded
+dispatches), and drives the paths below over a synthetic dense capture,
+checking what comes out:
 
   * the --raw file decode (DemodPipeline.stream_raw_device) at the CLI's
     defaults: 64-buffer batches, 8 batches per group, max_candidates 256,
@@ -171,6 +174,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms with the host's pace left out: the
+    `reps` calls are queued behind a sleep of about 20 ms on the device,
+    and CUDA events time them from the sleep's end."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.dtype == torch.uint16:
         a, b = (t.view(torch.int16).to(torch.int32) & 0xFFFF for t in (a, b))
@@ -307,6 +327,69 @@ def gather_phase(m: torch.Tensor, pos: torch.Tensor) -> dict:
                source="dump1090_tpu_torch/csrc/gather_windows.cu",
                replaces="dump1090_tpu/ops/gather.py:41")
     emit({"phase": "kernel_gather", "bit_equal": True, "edge_and_ragged_equal": True, **res})
+    return res
+
+
+def k4_check(w: torch.Tensor, pos: torch.Tensor, reps: int) -> dict:
+    """K4 (candidate_passes_window) bit-equal in all six outputs to its
+    plain version on the card, on windows w (N, 256) uint16 at positions
+    pos (N,), on a copy with edge rows (every seventh position 0, every
+    eleventh window random, every thirteenth flat) and on that copy's
+    int32 windows; its time (host-paced at small shapes, and queued:
+    device time alone) beside the bytes bound (506 bytes a candidate), the
+    plain version's time, and the host cost per call."""
+    from dump1090_tpu_torch.ops.demod import (
+        candidate_passes_window, candidate_passes_window_plain)
+
+    n = w.shape[0]
+    ew, ep = w.clone(), pos.clone()
+    ep[::7] = 0
+    gen = torch.Generator(device=w.device).manual_seed(n)
+    rows = ew[1::11]
+    rows.copy_(torch.randint(0, 1 << 16, rows.shape, generator=gen, device=w.device,
+                             dtype=torch.int32).to(torch.int16).view(torch.uint16))
+    flat = ew[2::13]
+    flat.copy_(flat[:, 30:31].clone().expand(flat.shape))
+    wide = ew.view(torch.int16).to(torch.int32) & 0xFFFF
+    err = 0
+    for ww, pp in ((w, pos), (ew, ep), (wide, ep)):
+        got = candidate_passes_window(ww, pp)
+        want = candidate_passes_window_plain(ww, pp)
+        err = max(err, *(max_abs_err(g, x) for g, x in zip(got, want)))
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"K4 differs from its plain version at {tuple(w.shape)}: {err}")
+    moved = n * 506
+    return {
+        "shape": list(w.shape), "max_abs_err": err,
+        "ms": cuda_ms(lambda: candidate_passes_window(w, pos), reps),
+        "device_ms": queued_ms(lambda: candidate_passes_window(w, pos), reps),
+        "plain_ms": cuda_ms(lambda: candidate_passes_window_plain(w, pos), max(reps // 10, 2)),
+        "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "host_us": host_us(lambda: candidate_passes_window(w, pos), 200),
+        "bytes_moved": moved,
+    }
+
+
+def passes_phase(m: torch.Tensor, pos: torch.Tensor) -> dict:
+    """K4 (k4_check) at the live path's (1 x 256), a host batch's
+    (16 x 256) and the file decode's (512 x 256) candidates, on the dense
+    group's windows (K1 at lead 1)."""
+    from dump1090_tpu_torch.ops.demod import gather_candidate_windows
+
+    w = gather_candidate_windows(m, pos).reshape(-1, 256)
+    p = pos.reshape(-1)
+    shapes = {}
+    for rows in (1, 16, 512):
+        k = rows * pos.shape[1]
+        shapes[f"{rows}x{pos.shape[1]}"] = k4_check(w[:k].contiguous(), p[:k].contiguous(), 50)
+    res = dict(shapes[f"512x{pos.shape[1]}"])
+    res.update(name="candidate_passes", route="cuda",
+               source="dump1090_tpu_torch/csrc/candidate_passes.cu",
+               replaces="none (the JAX package's lax.scan, dump1090_tpu/ops/demod.py:188-251)",
+               library_ms=None)
+    emit({"phase": "kernel_passes", "bit_equal": True, "edge_and_int32_equal": True,
+          "shapes": shapes})
     return res
 
 
@@ -1879,25 +1962,32 @@ def crcok_phase(data: bytes, dev: torch.device) -> dict:
 
 
 @contextlib.contextmanager
-def kernel_inputs(pick):
-    """Record K1's and K2's inputs on the pipeline's dispatch path
-    (ops.demod.gather_row_windows, ops.resolve.resolve_words) while the
-    block runs.  pick(kind, mc, n) names the record a call belongs to (kind
-    "k1" or "k2", mc its candidate slots a buffer, n K1's rows or K2's
-    slots), or None; a name keeps the tensors (cloned before the call) of
-    the last call given it.
+def kernel_inputs(pick, kinds=("k1", "k2")):
+    """Record K1's, K2's and K4's inputs on the pipeline's dispatch path
+    (ops.demod.gather_row_windows, ops.resolve.resolve_words and the
+    dispatch's ops.resolve.candidate_passes_window) while the block runs.
+    pick(kind, mc, n) names the record a call belongs to (kind "k1", "k2"
+    or "k4", mc its candidate slots a buffer, n K1's rows or K2's or K4's
+    slots), or None; it is asked only for the kinds in `kinds`.  K4's mc
+    is that of the thread's last K1 call, the same dispatch's window
+    gather.  A name keeps the tensors (cloned before the call) of the last
+    call given it.
     Yields {(name, kind): (args, kwargs)}; thread-safe, for the soak's
     planes."""
     import threading
 
     from dump1090_tpu_torch.ops import demod, resolve
 
-    rec, lock = {}, threading.Lock()
-    real = {"k1": demod.gather_row_windows, "k2": resolve.resolve_words}
+    rec, lock, local = {}, threading.Lock(), threading.local()
+    real = {"k1": demod.gather_row_windows, "k2": resolve.resolve_words,
+            "k4": resolve.candidate_passes_window}
 
     def wrap(kind, mc_of):
         def call(*a, **k):
-            name = pick(kind, mc_of(a), a[0].shape[0])
+            mc = mc_of(a)
+            if kind == "k1":
+                local.mc = mc
+            name = pick(kind, mc, a[0].shape[0]) if kind in kinds else None
             if name is not None:
                 kept = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
                 with lock:
@@ -1907,17 +1997,20 @@ def kernel_inputs(pick):
 
     demod.gather_row_windows = wrap("k1", lambda a: a[1].shape[1])
     resolve.resolve_words = wrap("k2", lambda a: a[8])
+    resolve.candidate_passes_window = wrap("k4", lambda a: getattr(local, "mc", None))
     try:
         yield rec
     finally:
         demod.gather_row_windows, resolve.resolve_words = real["k1"], real["k2"]
+        resolve.candidate_passes_window = real["k4"]
 
 
 def check_kernel_inputs(rec: dict, where: str) -> dict:
-    """K1 (k1_check) and K2 (against resolve_words_plain) on each recorded
-    call of kernel_inputs; raises on any difference.  Returns per name the
-    K1 shape, the K2 slots, `now`, the cache's valid and aged (older than
-    the ICAO TTL) entries, each error and time."""
+    """K1 (k1_check), K2 (against resolve_words_plain) and K4 (k4_check)
+    on each recorded call of kernel_inputs; raises on any difference.
+    Returns per name the K1 and K4 shapes, the K2 slots, `now`, the cache's
+    valid and aged (older than the ICAO TTL) entries, each error and
+    time."""
     from dump1090_tpu_torch.constants import ICAO_CACHE_TTL
     from dump1090_tpu_torch.ops import resolve
 
@@ -1928,6 +2021,11 @@ def check_kernel_inputs(rec: dict, where: str) -> dict:
             (m, pos), kw = rec[(name, "k1")]
             k = k1_check(m, pos, kw["lead"], kw["s_pad"], 20)
             r["k1"] = {x: k[x] for x in ("shape", "max_abs_err", "ms", "plain_ms")}
+        if (name, "k4") in rec:
+            (w, pos), _ = rec[(name, "k4")]
+            k = k4_check(w, pos, 10)
+            r["k4"] = {x: k[x] for x in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                         "bound_ms")}
         if (name, "k2") in rec:
             walk, _ = rec[(name, "k2")]
             got = resolve.resolve_words(*walk)
@@ -1951,12 +2049,12 @@ def fuzz_phase(seed: int, dev: torch.device, n: int = 24) -> dict:
     six one of each recipe (noise, garbage, planted frames twice, clustered
     frames, frames across a buffer boundary), each in FUZZ_MODES: the file
     decode with the device resolver in three decoder modes, the host
-    resolve (`raw`, K1 only), the sharded decode on a (1, 4) mesh of the
+    resolve (`raw`, K1 and K4 only), the sharded decode on a (1, 4) mesh of the
     card and the CLI's verbose display with the device resolver (cli.main
     in this process).  Every mode's lines on the card must equal the same
-    mode on the CPU.  K1's and K2's inputs of the last dispatch of each
-    recipe stream's `device` decode (1-3 buffers a batch) are recorded and
-    each kernel is held against its plain version on them.  Returns the
+    mode on the CPU.  K1's, K2's and K4's inputs of the last dispatch of
+    each recipe stream's `device` decode (1-3 buffers a batch) are recorded
+    and each kernel is held against its plain version on them.  Returns the
     phase's launches."""
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.tools import fuzz_diff
@@ -1988,7 +2086,7 @@ def fuzz_phase(seed: int, dev: torch.device, n: int = 24) -> dict:
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    with kernel_inputs(pick) as rec:
+    with kernel_inputs(pick, ("k1", "k2", "k4")) as rec:
         res = fuzz_diff.fuzz(n, seed, FUZZ_MODES, dev, in_process=True, around=counted,
                              log=lambda *_: None)
     wall = time.perf_counter() - t0
@@ -1999,17 +2097,19 @@ def fuzz_phase(seed: int, dev: torch.device, n: int = 24) -> dict:
     if sorted(res["streams_per_recipe"]) != list(range(fuzz_diff.RECIPES)):
         raise AssertionError(f"fuzz: a recipe was not drawn: {res['streams_per_recipe']}")
     for mode in FUZZ_MODES:
-        used = ("gather_windows",) if mode == "raw" else ("gather_windows", "resolve_words")
+        used = ("gather_windows", "candidate_passes")
+        used += () if mode == "raw" else ("resolve_words",)
         if any(per_mode[mode][k] <= 0 for k in used):
             raise AssertionError(f"fuzz: {mode} did not launch {used}: {dict(per_mode[mode])}")
-    if len(rec) != 2 * fuzz_diff.RECIPES:
-        raise AssertionError(f"fuzz: K1's and K2's inputs not recorded for every recipe: "
+    if len(rec) != 3 * fuzz_diff.RECIPES:
+        raise AssertionError(f"fuzz: K1's, K2's and K4's inputs not recorded for every recipe: "
                              f"{sorted(rec)}")
     kernels = check_kernel_inputs(rec, "fuzz")
     emit({"phase": "fuzz", "seed": seed, "streams": n, "modes": list(FUZZ_MODES),
           "equal": True, "streams_per_recipe": res["streams_per_recipe"],
           "lines_compared": res["lines"],
           "launches_per_mode": {m: {k: per_mode[m][k] for k in ("gather_windows",
+                                                                 "candidate_passes",
                                                                  "resolve_words")}
                                 for m in FUZZ_MODES},
           "card_s_per_mode": dict(card_s), "phase_s": wall, "launches": launches,
@@ -2027,7 +2127,7 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
     and 1,024 quiet buffers (67 s).  Then each plane's CPU replay under the
     recorded clocks.  Each plane must equal its replay byte for byte, span
     at least 120 s of clock, shrink max_candidates and grow it back; the
-    messages plane must evict.  K1's and K2's inputs are recorded in each
+    messages plane must evict.  K1's, K2's and K4's inputs are recorded in each
     plane at its first dispatch with max_candidates shrunk to 64, its last
     one there (the dense air that overflows, over a cache aged past the
     TTL) and its first after the regrowth (the replay, aged cache), under
@@ -2071,7 +2171,8 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
     t0 = time.perf_counter()
     pl.demod_resolve_group = dispatch
     try:
-        with contextlib.redirect_stdout(sys.stderr), kernel_inputs(pick) as rec:
+        with contextlib.redirect_stdout(sys.stderr), \
+                kernel_inputs(pick, ("k1", "k2", "k4")) as rec:
             report = soak_device.soak(specs, dev)  # its PASS/FAIL lines go to stderr
     finally:
         pl.demod_resolve_group = real_dispatch
@@ -2086,12 +2187,13 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
             raise AssertionError(f"soak {plane}: too short a clock, or no shrink and regrowth: {f}")
         if plane == "messages" and f["evicted"] < 1:
             raise AssertionError(f"soak {plane}: no aircraft was evicted: {f}")
-    if any(launches[k] <= 0 for k in ("gather_windows", "resolve_words")):
+    if any(launches[k] <= 0 for k in ("gather_windows", "candidate_passes", "resolve_words")):
         raise AssertionError(f"soak: a kernel did not launch: {launches}")
     want = {(f"{p}/{at}", kind) for p in report for at in ("shrunk", "regrown")
-            for kind in ("k1", "k2")}
+            for kind in ("k1", "k2", "k4")}
     if not want <= set(rec):
-        raise AssertionError(f"soak: K1's and K2's inputs not recorded at {sorted(want - set(rec))}")
+        raise AssertionError(f"soak: K1's, K2's and K4's inputs not recorded at "
+                             f"{sorted(want - set(rec))}")
     kernels = check_kernel_inputs(rec, "soak")
     for plane in report:
         if kernels[f"{plane}/regrown"]["k2"]["cache_aged"] < 1:
@@ -2619,6 +2721,7 @@ def main() -> int:
     m, n, pos = _group_front(xg, scan_len=131070, max_candidates=mc)
     walk_in, _ = _group_precompute(m, n, pos, True, False, max_candidates=mc)
     k1 = gather_phase(m, pos)
+    k4 = passes_phase(m, pos)
     gather_shapes_phase(m)
     del m, pos
     # sparse air: 10 frames per block at the same noise, tiled to one group
@@ -2824,36 +2927,38 @@ def main() -> int:
 
     gather_stage_kernels_phase(args.seed)
 
+    k124 = ("gather_windows", "candidate_passes", "resolve_words")
+    k14 = ("gather_windows", "candidate_passes")
     paths = {
-        "file_decode": (launches, ("gather_windows", "resolve_words")),
-        "decode_captures": (captures_launches, ("gather_windows", "resolve_words_streams")),
-        "decode_capture": (solo_launches, ("gather_windows", "resolve_words")),
-        "verbose_cli": (verbose_launches, ("gather_windows", "resolve_words")),
-        "verbose_vs_cpu": (vs_cpu_launches, ("gather_windows", "resolve_words")),
-        "net": (net_launches, ("gather_windows", "resolve_words")),
-        "host_resolve": (host_launches, ("gather_windows",)),
-        "host_resolve_cli": (host_cli_launches, ("gather_windows",)),
-        "host_resolve_python": (python_launches, ("gather_windows",)),
-        "debug_golden": (debug_golden_launches, ("gather_windows",)),
-        "debug_vs_cpu": (debug_cpu_launches, ("gather_windows",)),
-        "decode_captures_host": (captures_host_launches, ("gather_windows",)),
-        "front_packed": (front_launches, ("gather_windows", "resolve_words")),
-        "preload_staged": (staged_launches, ("gather_windows", "resolve_words")),
-        "live": (live_launches, ("gather_windows", "resolve_words")),
-        "live_cli": (live_cli_launches, ("gather_windows", "resolve_words")),
-        "profile": (profile_launches, ("gather_windows", "resolve_words")),
-        "sharded": (sharded_launches, ("gather_windows", "resolve_words")),
-        "worker_bench": (worker_bench_launches, ("gather_windows",)),
-        "crcok": (crcok_launches, ("gather_windows", "resolve_words")),
-        "fuzz": (fuzz_launches, ("gather_windows", "resolve_words")),
-        "soak": (soak_launches, ("gather_windows", "resolve_words")),
-        "stdin": (stdin_launches, ("gather_windows", "resolve_words")),
-        "snr": (snr_launches, ("gather_windows", "resolve_words")),
-        "reps_soak": (reps_launches, ("gather_windows", "resolve_words")),
-        "reps_native_cli": (reps_cli_launches["native"], ("gather_windows",)),
-        "reps_no_native_cli": (reps_cli_launches["no_native"], ("gather_windows",)),
-        "bench": (bench_launches, ("gather_windows", "resolve_words")),
-        "measure": (probe_launches, ("gather_windows", "resolve_words")),
+        "file_decode": (launches, k124),
+        "decode_captures": (captures_launches, (*k14, "resolve_words_streams")),
+        "decode_capture": (solo_launches, k124),
+        "verbose_cli": (verbose_launches, k124),
+        "verbose_vs_cpu": (vs_cpu_launches, k124),
+        "net": (net_launches, k124),
+        "host_resolve": (host_launches, k14),
+        "host_resolve_cli": (host_cli_launches, k14),
+        "host_resolve_python": (python_launches, k14),
+        "debug_golden": (debug_golden_launches, k14),
+        "debug_vs_cpu": (debug_cpu_launches, k14),
+        "decode_captures_host": (captures_host_launches, k14),
+        "front_packed": (front_launches, k124),
+        "preload_staged": (staged_launches, k124),
+        "live": (live_launches, k124),
+        "live_cli": (live_cli_launches, k124),
+        "profile": (profile_launches, k124),
+        "sharded": (sharded_launches, k124),
+        "worker_bench": (worker_bench_launches, k14),
+        "crcok": (crcok_launches, k124),
+        "fuzz": (fuzz_launches, k124),
+        "soak": (soak_launches, k124),
+        "stdin": (stdin_launches, k124),
+        "snr": (snr_launches, k124),
+        "reps_soak": (reps_launches, k124),
+        "reps_native_cli": (reps_cli_launches["native"], k14),
+        "reps_no_native_cli": (reps_cli_launches["no_native"], k14),
+        "bench": (bench_launches, k124),
+        "measure": (probe_launches, k124),
     }
     emit({"phase": "kernels", "launches_by_path": {p: c for p, (c, _) in paths.items()}})
     for path, (counts, used) in paths.items():
@@ -2871,8 +2976,9 @@ def main() -> int:
     k1["launches"] = launches["gather_windows"]
     k2["launches"] = launches["resolve_words"]
     k3["launches"] = captures_launches["resolve_words_streams"]
+    k4["launches"] = launches["candidate_passes"]
     # and on the time-sharded decode (K1 in every shard, K2 over the segments)
-    for r in (k1, k2, k3):
+    for r in (k1, k2, k3, k4):
         r["launches_sharded"] = sharded_launches[r["name"]]
         # and on the fuzz's and the soaks' card runs
         r["launches_fuzz"] = fuzz_launches[r["name"]]
@@ -2893,7 +2999,7 @@ def main() -> int:
             "launches_fuzz", "launches_soak", "launches_stdin", "launches_snr",
             "launches_reps", "launches_bench", "launches_measure", "launches_crcok",
             "launches_worker_bench")
-    emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3)]})
+    emit({"kernels": [{k: r[k] for k in keys} for r in (k1, k2, k3, k4)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -29,12 +29,13 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("gather_windows.cu", "resolve_words.cu")
+SOURCES = ("gather_windows.cu", "resolve_words.cu", "candidate_passes.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches()
-launches = {"gather_windows": 0, "resolve_words": 0, "resolve_words_streams": 0}
+launches = {"gather_windows": 0, "resolve_words": 0, "resolve_words_streams": 0,
+            "candidate_passes": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -51,6 +52,8 @@ _SIGNATURES = {
     # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out, counts,
     #  n_streams, bufs_per_stream, mc, now, stream)
     "resolve_words_streams": [_vp] * 11 + [_i, _i, _i, _i, _vp],
+    # (w, elem_bytes, row, pos, msg, errors, gate, n, stream)
+    "candidate_passes": [_vp, _i, _i, _vp, _vp, _vp, _vp, _i, _vp],
 }
 
 

@@ -1,5 +1,5 @@
 """Block demodulator: magnitude rows -> compacted Mode S candidates, and both
-demodulation passes of every candidate (plain PyTorch).
+demodulation passes of every candidate.
 
 Behavioral contract: detectModeS + applyPhaseCorrection,
 dump1090.c:1471-1793.  Port of dump1090_tpu/ops/demod.py, with the same
@@ -23,6 +23,10 @@ with no approximation:
 Everything is vectorized over all candidates of a dispatch group: tensors
 are (N, ...) with N = buffers x max_candidates.
 
+Steps 3 and 4 are one CUDA kernel on the card (K4, csrc/candidate_passes.cu,
+launched by candidate_passes_window); candidate_passes_window_plain is its
+plain version, which runs on a CPU tensor.
+
 demod_batch, demod_block and demod_iq_block return the whole per-buffer
 result as Candidates, the host-resolve path's device output: the sequential
 skip rule and the ICAO cache are then replayed on the host (the C++ runtime
@@ -42,6 +46,7 @@ from ..constants import (
     PREAMBLE_SAMPLES,
     SHORT_MSG_BITS,
 )
+from . import _cuda
 from .gather import WINDOW_PAD, gather_row_windows
 from .magnitude import magnitude_from_iq, magnitude_from_pairs
 
@@ -459,11 +464,11 @@ def widen_windows(w: torch.Tensor) -> torch.Tensor:
     return w[:, :WINDOW].to(torch.int32)
 
 
-def candidate_passes_window(w: torch.Tensor, pos: torch.Tensor):
-    """Both demod passes for N candidates given their gathered windows
-    ((N, >=241) uint16 or int32, w[:, 0] = m[pos-1]) and int32 scan
-    positions (N,).  Phase correction is skipped at pos == 0, where m[-1]
-    does not exist (dump1090.c:1658-1663).
+def candidate_passes_window_plain(w: torch.Tensor, pos: torch.Tensor):
+    """Plain version of candidate_passes_window: both demod passes for N
+    candidates given their gathered windows ((N, >=241) uint16 or int32,
+    w[:, 0] = m[pos-1]) and int32 scan positions (N,).  Phase correction is
+    skipped at pos == 0, where m[-1] does not exist (dump1090.c:1658-1663).
 
     Returns (msg1 uint8[N,14], errors1 int32[N], gate1 bool[N], msg2,
     errors2, gate2)."""
@@ -476,6 +481,48 @@ def candidate_passes_window(w: torch.Tensor, pos: torch.Tensor):
     msg2, errors2, df2 = _slice_window(corrected)
     gate2 = _noise_gate(msg_region, df2)  # gate reads restored originals
     return msg1, errors1, gate1, msg2, errors2, gate2
+
+
+def _check_passes(w: torch.Tensor, pos: torch.Tensor) -> None:
+    """What K4 indexes: contiguous (N, >=241) uint16 or int32 windows and
+    N contiguous int32 positions, on one device."""
+    if w.dtype not in (torch.uint16, torch.int32) or w.dim() != 2 or w.shape[1] < WINDOW:
+        raise TypeError(f"w must be uint16 or int32 (N, >={WINDOW}), got {w.dtype} "
+                        f"{tuple(w.shape)}")
+    if pos.dtype != torch.int32 or pos.dim() != 1 or pos.shape[0] != w.shape[0]:
+        raise TypeError(f"pos must be int32 (N,) with N = {w.shape[0]}, got {pos.dtype} "
+                        f"{tuple(pos.shape)}")
+    if not (w.is_contiguous() and pos.is_contiguous()):
+        raise ValueError("the demod passes need contiguous windows and positions")
+    if w.get_device() != pos.get_device():
+        raise ValueError(f"w on {w.device} but pos on {pos.device}")
+
+
+def candidate_passes_window(w: torch.Tensor, pos: torch.Tensor):
+    """Both demod passes of N candidates (candidate_passes_window_plain's
+    arguments and results): K4 on CUDA tensors, the plain version on the
+    CPU.  The two passes' outputs are views of one buffer per field."""
+    _check_passes(w, pos)
+    if not w.is_cuda:
+        if w.device.type != "cpu":
+            raise ValueError(f"the demod passes run on cuda or cpu, not {w.device}")
+        return candidate_passes_window_plain(w, pos)
+    index = w.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):  # the launch goes to the current device
+            return candidate_passes_window(w, pos)
+    n = w.shape[0]
+    msg = torch.empty((2, n, LONG_MSG_BITS // 8), dtype=torch.uint8, device=w.device)
+    errors = torch.empty((2, n), dtype=torch.int32, device=w.device)
+    gate = torch.empty((2, n), dtype=torch.bool, device=w.device)
+    if n:
+        err = _cuda.library().candidate_passes(
+            w.data_ptr(), w.element_size(), w.shape[1], pos.data_ptr(), msg.data_ptr(),
+            errors.data_ptr(), gate.data_ptr(), n, _cuda.current_stream(index),
+        )
+        _cuda.launches["candidate_passes"] += 1
+        _cuda.check(err, "candidate_passes")
+    return msg[0], errors[0], gate[0], msg[1], errors[1], gate[1]
 
 
 def gather_candidate_windows(m: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

@@ -30,8 +30,10 @@ air (127s), past the 60 s ICAO-cache and aircraft TTLs, is paced at --rate-mb-s
 through a live-clock pipeline, so the decode crosses TTL horizons and the
 pipeline's quiet-air shrink of its shapes (max_candidates down to 64) and
 their regrowth on the next dense air.  Each pass records every value each
-clock returned; a CPU oracle subprocess (--oracle-spec, --device cpu) then
-replays the identical byte stream with the recorded clock sequences.
+clock returned and every answer of the pipeline's probe for a ready input
+group (which decides when a group is fetched); a CPU oracle subprocess
+(--oracle-spec, --device cpu) then replays the identical byte stream with
+the recorded clock and readiness sequences.
 
   --wall-minutes: the raw-stream plane, DemodPipeline.stream_raw_device
     (K1 and K2): the stream, the 8 counters and the max_candidates of every
@@ -353,6 +355,43 @@ def _make_clock(spec: dict, name: str, rec: dict, ms: bool = False):
     return clock
 
 
+def _schedule(p, spec: dict, rec: dict) -> None:
+    """Record (device pass) or replay (oracle pass) the pipeline's answers
+    to whether its next input group is ready (`_Groups.ready`), as the
+    clocks are.  The dispatch loop fetches a group as soon as no next one
+    is ready, and that moves the group at which adapt_down's shrink takes
+    effect and the groups a growth replays: a paced device pass and an
+    unpaced oracle would answer differently, and the same answers give the
+    same dispatches.  An oracle that asks past the recorded answers takes
+    its own and counts the overrun."""
+    real = p._ingest_groups
+    vals = spec.get("ready")
+    if vals is None:
+        answers = rec.setdefault("ready", [])
+    else:
+        replayed = iter(vals)
+        state = rec.setdefault("overrun", {})["ready"] = {"over": 0}
+
+    def ingest(*a, **k):
+        groups = real(*a, **k)
+        probe = groups.ready
+
+        def ready():
+            if vals is None:
+                answers.append(probe())
+                return answers[-1]
+            v = next(replayed, None)
+            if v is None:
+                state["over"] += 1
+                return probe()
+            return v
+
+        groups.ready = ready
+        return groups
+
+    p._ingest_groups = ingest
+
+
 def _pipeline(spec: dict, clock, device):
     """The plane's DemodPipeline on `device`, whose clock also notes the
     max_candidates of every dispatch (the pipeline reads its clock once a
@@ -385,6 +424,7 @@ def _run_device_pass(spec: dict, paced: bool, device="cuda") -> dict:
     rec: dict = {}
     src = _source(spec, paced)
     p, shapes = _pipeline(spec, _make_clock(spec, "clocks", rec), device)
+    _schedule(p, spec, rec)
     out, yields = [], []  # (t_monotonic, n_bytes) per fetched batch
     t0 = time.monotonic()
     for chunk in p.stream_raw_device(src):
@@ -422,6 +462,7 @@ def _run_messages_pass(spec: dict, paced: bool, device="cuda") -> dict:
     rec: dict = {}
     src = _source(spec, paced)
     p, shapes = _pipeline(spec, _make_clock(spec, "pipe_clocks", rec), device)
+    _schedule(p, spec, rec)
     # enable the tracking gate the way live SBS/HTTP clients do
     # (useModesMessage dump1090.c:1806-1808)
     p.stats.sbs_connections = 1

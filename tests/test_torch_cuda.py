@@ -430,3 +430,127 @@ def test_uint16_magnitudes_on_card_equal_int32_and_cpu(cuda):
                                   out_dtype=torch.uint16)):
         assert got.dtype == torch.uint16
         np.testing.assert_array_equal(got.cpu().view(torch.int16).numpy().view(np.uint16), want)
+
+
+def _passes_windows(seed):
+    """uint16 candidate windows (k, 256) and int32 positions (k,): dense
+    air's real windows (front and window gather on planted air), random
+    windows, flat windows (low == high in every cell: the demod error and
+    its inherited 2), windows whose early and late energies are equal,
+    windows with no early or on-time energy (e + on_time == 0) and windows
+    whose corrected samples saturate at 65,535; every seventh position 0
+    and a few negative (no phase correction)."""
+    from dump1090_tpu_torch.constants import BUF_SAMPLES, FULL_LEN_SAMPLES
+    from dump1090_tpu_torch.io.sources import iq_buffers
+    from dump1090_tpu_torch.ops import demod as td
+    from dump1090_tpu_torch.ops.magnitude import magnitude_from_iq
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    rng = np.random.default_rng(seed)
+    data, _ = planted_capture(2, 150, seed=seed, noise_sigma=4.0)
+    m = magnitude_from_iq(torch.from_numpy(np.stack(list(iq_buffers(io.BytesIO(data))))))
+    _, pos = td.front_candidates(m, BUF_SAMPLES - FULL_LEN_SAMPLES, 256)
+    air = td.gather_candidate_windows(m, pos).reshape(-1, 256).view(torch.int16).numpy()
+    air = air.view(np.uint16)
+    rand = rng.integers(0, 1 << 16, (256, 256), dtype=np.uint16)
+    flat = np.repeat(rng.integers(0, 1 << 16, (32, 1), dtype=np.uint16), 256, axis=1)
+    even = rng.integers(0, 1 << 16, (32, 256), dtype=np.uint16)
+    even[:, 0] = even[:, 4]          # early == late: w0 + w7 == w4 + w11
+    even[:, 7] = even[:, 11]
+    dark = rng.integers(0, 1 << 16, (32, 256), dtype=np.uint16)
+    dark[:, [0, 1, 3, 4, 7, 8, 10, 11]] = 0
+    hot = rng.integers(60000, 1 << 16, (32, 256), dtype=np.uint16)
+    hot[:, [1, 3, 8, 10]] = 1        # on_time ~0: the factors reach 2 and 0
+    w = np.concatenate([air, rand, flat, even, dark, hot])
+    p = np.concatenate([pos.reshape(-1).numpy(),
+                        rng.integers(1, 131070, len(w) - pos.numel()).astype(np.int32)])
+    p[::7] = 0
+    p[3::97] = -5
+    return w, p
+
+
+@pytest.mark.parametrize("n", [1, 31, 256, 4096, 131072])
+@pytest.mark.parametrize("dtype", ["uint16", "int32"])
+def test_passes_kernel_equals_plain(cuda, n, dtype):
+    """K4 bit-equal to candidate_passes_window_plain (on the CPU) in all six
+    outputs, one launch a call, on windows cycled to n rows (the first n
+    rows when n is smaller), both walk directions among them; int32
+    windows also with samples past 16 bits and below 0."""
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops.demod import candidate_passes_window, candidate_passes_window_plain
+
+    w, p = _passes_windows(n)
+    w, p = np.resize(w, (n, w.shape[1])), np.resize(p, n)
+    if dtype == "int32":
+        w = w.astype(np.int32)
+        wide = np.random.default_rng(n).integers(-(1 << 20), 1 << 20, w.shape, dtype=np.int32)
+        w[1::5] = wide[1::5]
+    w = np.ascontiguousarray(w)
+    wt = torch.from_numpy(w.view(np.int16)).view(torch.uint16) if dtype == "uint16" else \
+        torch.from_numpy(w)
+    pt = torch.from_numpy(np.ascontiguousarray(p))
+    before = _cuda.launches["candidate_passes"]
+    got = candidate_passes_window(wt.to(cuda), pt.to(cuda))
+    torch.cuda.synchronize()
+    assert _cuda.launches["candidate_passes"] == before + 1
+    want = candidate_passes_window_plain(wt, pt)
+    names = ("msg1", "errors1", "gate1", "msg2", "errors2", "gate2")
+    for name, g, x in zip(names, got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        assert torch.equal(g.cpu(), x), name
+    if n >= 4096:
+        w64 = w.astype(np.int64)
+        early = w64[:, 0] + w64[:, 7] > w64[:, 4] + w64[:, 11]
+        assert early.any() and (~early).any() and (p <= 0).any()
+        assert want[1].any() and want[2].any() and not torch.equal(want[0], want[3])
+
+
+def _stub_library(tmp_path):
+    import subprocess
+    from pathlib import Path
+
+    lib = tmp_path / "librtlsdr_stub.so"
+    src = Path(__file__).resolve().parent / "stub_rtlsdr.c"
+    try:
+        subprocess.run(["gcc", "-shared", "-fPIC", str(src), "-o", str(lib)], check=True,
+                       capture_output=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        pytest.skip(f"cannot build stub librtlsdr: {e}")
+    return lib
+
+
+@pytest.mark.parametrize("path", ["stream_raw_device", "run_device", "run_source_device"])
+def test_passes_kernel_once_a_dispatch_with_no_walk_loop(cuda, path, tmp_path, monkeypatch):
+    """The file decode, the hub path's run_device and the live path launch
+    K4 once a dispatch (as often as K1 and K2) and never run the plain
+    version's walk loop on the card."""
+    from dump1090_tpu_torch.io.rtlsdr import RtlSdrSource
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.ops import _cuda
+    from dump1090_tpu_torch.ops import demod as td
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    walks = []
+    real = td._phase_corrected_window
+    monkeypatch.setattr(td, "_phase_corrected_window", lambda w: walks.append(w.device) or real(w))
+    data, _ = planted_capture(4, 150, seed=44, noise_sigma=3.0)
+    if path == "run_source_device":
+        (tmp_path / "air.bin").write_bytes(data)
+        monkeypatch.setenv("DUMP1090_TPU_LIBRTLSDR", str(_stub_library(tmp_path)))
+        monkeypatch.setenv("RTLSDR_STUB_DATA", str(tmp_path / "air.bin"))
+        monkeypatch.setenv("RTLSDR_STUB_DELAY_US", "200000")
+        config = PipelineConfig()
+    else:
+        config = PipelineConfig(batch_buffers=2, dispatch_groups=2, max_candidates=16)
+    p, msgs = DemodPipeline(config, clock=lambda: NOW, device=cuda), []
+    _cuda.reset_launches()
+    if path == "stream_raw_device":
+        msgs = b"".join(p.stream_raw_device(io.BytesIO(data))).split()
+    elif path == "run_device":
+        p.run_device(io.BytesIO(data), msgs.append)
+    else:
+        p.run_source_device(RtlSdrSource(err=io.StringIO()).buffers(), msgs.append)
+    torch.cuda.synchronize()
+    k4 = _cuda.launches["candidate_passes"]
+    assert k4 == _cuda.launches["gather_windows"] == _cuda.launches["resolve_words"] > 0
+    assert not walks and msgs

@@ -139,3 +139,141 @@ def test_preamble_reject_stages_matches_jax(mags, iq_bufs):
     assert set(np.unique(got)) == {0, 1, 2, 3}
     mask = td.preamble_mask(torch.from_numpy(rows), SCAN).numpy()
     np.testing.assert_array_equal(mask, got == 0)
+
+
+# ---- a scalar oracle of both passes, and the K4 wrapper's contract ----------
+
+def _scalar_passes(w, pos):
+    """A scalar transliteration of detectModeS's bit slicing and noise gate
+    (dump1090.c:1666-1726) around applyPhaseCorrection (dump1090.c:1471-1558)
+    for one window (w[0] = m[pos-1]): (msg1, errors1, gate1, msg2, errors2,
+    gate2).  Where the reference would divide by zero (no early or late and
+    no on-time energy) the factor is taken as 16384 both ways, the port's
+    max(e + on_time, 1)."""
+    from dump1090_tpu_torch.constants import message_bits_for_df
+
+    w = [int(x) for x in w[:241]]
+    orig = w[17:241]
+
+    def scale(v, f):  # scaleSample: uint32 product over 16384, clamped
+        return min(v * f // 16384, 65535)
+
+    def detect(m):
+        bits, errors = [0] * 112, 0
+        for i in range(0, 224, 2):
+            low, high = m[i], m[i + 1]
+            if i > 0 and abs(low - high) < 256:
+                bits[i // 2] = bits[i // 2 - 1]
+            elif low == high:
+                bits[i // 2] = 2
+                errors += 1
+            else:
+                bits[i // 2] = int(low > high)
+        msg = bytes(
+            (bits[i] << 7 | bits[i + 1] << 6 | bits[i + 2] << 5 | bits[i + 3] << 4
+             | bits[i + 4] << 3 | bits[i + 5] << 2 | bits[i + 6] << 1 | bits[i + 7]) & 0xFF
+            for i in range(0, 112, 8))
+        msglen = message_bits_for_df(msg[0] >> 3) // 8
+        delta = sum(abs(orig[i] - orig[i + 1]) for i in range(0, msglen * 16, 2))
+        return msg, errors, delta // (msglen * 4) >= 10 * 255
+
+    m = list(orig)
+    if pos > 0:
+        on_time = w[1] + w[3] + w[8] + w[10]
+        early, late = (w[0] + w[7]) * 2, (w[4] + w[11]) * 2
+        e = early if early > late else late
+        q = 16384 * e // max(e + on_time, 1)
+        up, down = 16384 + q, 16384 - q
+        if early > late:
+            m[223] = scale(m[223], up)
+            for j in range(222, 0, -2):
+                m[j - 1] = scale(m[j - 1], down if m[j] > m[j + 1] else up)
+        else:
+            m[0] = scale(m[0], up)
+            for j in range(0, 222, 2):
+                m[j + 2] = scale(m[j + 2], up if m[j] > m[j + 1] else down)
+    return (*detect(orig), *detect(m))
+
+
+def _edge_windows(case, rng, k=24):
+    w = rng.integers(0, 1 << 16, (k, 256), dtype=np.uint16)
+    if case == "flat":
+        w[:] = rng.integers(0, 1 << 16, (k, 1), dtype=np.uint16)
+    elif case == "early_eq_late":
+        w[:, 0], w[:, 7] = w[:, 4], w[:, 11]
+    elif case == "no_energy":      # e + on_time == 0 in whichever direction
+        w[:, [0, 1, 3, 4, 7, 8, 10, 11]] = 0
+    elif case == "inherited_2":    # cell 0 an error, cell 1 repeats it, then a bit
+        w[:, 17] = w[:, 18]
+        w[:, 19] = np.minimum(w[:, 20].astype(np.int64) + 100, 65535)
+        w[:, 21], w[:, 22] = 40000, 1000
+    elif case == "saturating":     # factors near 2 and 0 over samples near 65535
+        w = rng.integers(60000, 1 << 16, (k, 256), dtype=np.uint16)
+        w[:, [1, 3, 8, 10]] = 1
+    return w
+
+
+EDGE_CASES = ["flat", "early_eq_late", "no_energy", "inherited_2", "saturating", "random"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_passes_match_scalar_oracle_on_edge_windows(case):
+    rng = np.random.default_rng(EDGE_CASES.index(case))
+    w = _edge_windows(case, rng)
+    pos = rng.integers(1, SCAN, len(w)).astype(np.int32)
+    pos[::5] = 0
+    got = td.candidate_passes_window_plain(torch.from_numpy(w), torch.from_numpy(pos))
+    got = [g.numpy() for g in got]
+    for i in range(len(w)):
+        want = _scalar_passes(w[i], int(pos[i]))
+        for f in (0, 3):
+            assert bytes(got[f][i]) == want[f], (case, i, f)
+        for f in (1, 2, 4, 5):
+            assert int(got[f][i]) == int(want[f]), (case, i, f)
+    if case == "saturating":
+        corrected = td._phase_corrected_window(torch.from_numpy(w[:, :241]).to(torch.int32))
+        assert (corrected == 65535).any()
+    if case == "flat":
+        assert got[1].all() and (got[0] == 0xFE).all()
+
+
+def _bad_inputs():
+    w = torch.zeros((4, 256), dtype=torch.int32)
+    pos = torch.zeros(4, dtype=torch.int32)
+    return {
+        "int16_windows": (TypeError, w.to(torch.int16), pos),
+        "int64_windows": (TypeError, w.to(torch.int64), pos),
+        "int64_positions": (TypeError, w, pos.to(torch.int64)),
+        "flat_windows": (TypeError, w.reshape(-1), pos),
+        "short_windows": (TypeError, w[:, :240].contiguous(), pos),
+        "positions_2d": (TypeError, w, pos[:, None]),
+        "positions_too_few": (TypeError, w, pos[:3]),
+        "strided_windows": (ValueError, torch.zeros((4, 512), dtype=torch.int32)[:, ::2], pos),
+        "strided_positions": (ValueError, w, torch.zeros(8, dtype=torch.int32)[::2]),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()))
+def test_passes_wrapper_refuses_what_the_kernel_does_not_take(case):
+    err, w, pos = _bad_inputs()[case]
+    with pytest.raises(err):
+        td.candidate_passes_window(w, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+def test_passes_wrapper_runs_the_plain_version_on_the_cpu(mags, dtype, monkeypatch):
+    from dump1090_tpu_torch.ops import _cuda
+
+    w, pos = _windows(mags, np.random.default_rng(2))
+    wt = torch.from_numpy(w) if dtype == torch.uint16 else torch.from_numpy(w.astype(np.int32))
+
+    def no_library():
+        raise AssertionError("the CPU path reached the kernel library")
+
+    monkeypatch.setattr(_cuda, "library", no_library)
+    _cuda.reset_launches()
+    got = td.candidate_passes_window(wt, torch.from_numpy(pos))
+    want = td.candidate_passes_window_plain(wt, torch.from_numpy(pos))
+    assert _cuda.launches["candidate_passes"] == 0
+    for g, x in zip(got, want):
+        assert g.device.type == "cpu" and torch.equal(g, x)

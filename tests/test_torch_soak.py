@@ -171,6 +171,33 @@ def test_small_soak_equals_its_replay_and_jax(plane, jsoak, monkeypatch, tmp_pat
             assert want[key] == dev[key], key
 
 
+def test_replay_takes_the_device_pass_readiness(monkeypatch):
+    """A device pass that fetches every group before the next is ready (a
+    paced run on a host that keeps up with it) against its unpaced CPU
+    replay, whose next group is mostly ready at once: the replay answers the
+    pipeline's readiness probe as the device pass did, so both shrink and
+    grow max_candidates at the same dispatches and read the same clocks.
+    Without the recorded answers the replay diverges."""
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    spec = dict(SPEC)
+    src = tsoak._source(spec, paced=False)
+    spec["total_bytes"] = src.period_len + src.fleet_end
+    _fake_time(monkeypatch, STEP["wall"])
+    with monkeypatch.context() as m:
+        m.setattr(pl._Groups, "ready", lambda self: False)
+        dev = tsoak._run_device_pass(spec, paced=False, device="cpu")
+    f = tsoak.facts("wall", dev)
+    assert f["shrinks"] >= 1 and f["regrowths"] >= 1
+    assert dev["rec"]["ready"] and not any(dev["rec"]["ready"])
+    orc = tsoak.replay({"wall": spec}, {"wall": dev}, timeout=240)["wall"]
+    assert tsoak.check("wall", dev, orc) == []
+    unrecorded = dict(dev, rec={k: v for k, v in dev["rec"].items() if k != "ready"})
+    orc = tsoak.replay({"wall": spec}, {"wall": unrecorded}, timeout=240)["wall"]
+    assert any("max_candidates per dispatch diverged" in f
+               for f in tsoak.check("wall", unrecorded, orc))
+
+
 def test_main_runs_both_planes_side_by_side_on_the_cpu():
     """The entry point with --device cpu over a 3 s window of each plane at
     8 MB/s (real clock), 16 quiet buffers a period: one PASS line a plane,
