@@ -1218,7 +1218,7 @@ def host_resolve_phase(path: Path, n_bufs: int, raw_want: bytes, dev: torch.devi
     emit({"phase": "host_resolve", "buffers": n_bufs, "batch_buffers": 16, "samples": samples,
           "messages": len(msgs), "crcok_messages": sum(m.crcok for m in msgs),
           "equal_run_device": True, "stats_equal": True, "native_used": True,
-          "cli_raw_off_equal": True, "stats": vars(p.stats), "settled_mc": p._mc,
+          "cli_raw_off_equal": True, "stats": vars(p.stats), "settled_mc": p.shapes.mc,
           "wall_s": wall, "msps": samples / wall / 1e6, "dispatches": len(demod_ms),
           "device_demod_s": sum(demod_ms) / 1e3, "device_demod_ms_per_dispatch":
           [min(demod_ms), sum(demod_ms) / len(demod_ms), max(demod_ms)],
@@ -2793,10 +2793,9 @@ def main() -> int:
         # the same file through a fresh pipeline that starts at the shapes
         # the first one grew to, so no group is replayed; then the ingest
         # alone (read, frame, upload), to split the file decode's wall time
-        shapes = dict(max_candidates=p._mc, max_out_short=p._mos, max_out_long=p._mol)
         warm = DemodPipeline(PipelineConfig(batch_buffers=64, dispatch_groups=8),
                              clock=lambda: NOW, device=dev)
-        warm._mc, warm._mos, warm._mol = p._mc, p._mos, p._mol
+        warm.shapes = dataclasses.replace(p.shapes, mo=None)
         t1 = time.perf_counter()
         with open(path, "rb") as f:
             warm_out = b"".join(warm.stream_raw_device(f))
@@ -2829,7 +2828,7 @@ def main() -> int:
     # the shapes the pipeline settled on, by the measurement tools' code:
     # sustained_msps fetches every group with three in flight and formats
     # none; sustained_formatted_msps adds the bench's formatting worker
-    program = Group(p._mc, p._mos, p._mol)
+    program = Group(p.shapes.mc, p.shapes.mos, p.shapes.mol)
     split = group_stage_split(program, xg)
     sus, _ = sustained(program, [xg], 6, depth=3)
     zero = torch.zeros(1024, dtype=torch.int32, device=dev)
@@ -2845,7 +2844,9 @@ def main() -> int:
           "sustained_msps": sus, "sustained_formatted_msps": sus_formatted,
           "stage_ms_per_group": split,
           "gather_stage_ms": {"two_step": k1["two_step_ms"], "fused": split["gather"]},
-          "peak_device_bytes": peak, "settled_shapes": shapes,
+          "peak_device_bytes": peak, "settled_shapes": dict(
+              max_candidates=p.shapes.mc, max_out_short=p.shapes.mos,
+              max_out_long=p.shapes.mol),
           "groups_replayed": launches["resolve_words"] - args.groups})
 
     # ---- the emission's crcok_only, packed and not ----------------------------

@@ -57,6 +57,8 @@ from .models.decoder import (
 )
 from .models.pipeline import DemodPipeline, PipelineConfig, _Fetch, _upload
 from .models.resolver import BlockCandidates, resolve_block
+from .models.shapes import Peaks, Shapes, step
+from .models.state import cache_from_device, cache_to_device
 from .native import NativeResolver
 from .ops.demod import Candidates, demod_batch, demod_iq_block
 from .ops.resolve import (
@@ -134,6 +136,11 @@ class _StreamState:
     resolver: object = None
 
 
+def _results(states: list[_StreamState], crcok_only: bool) -> list[list[ModesMessage]]:
+    """Each capture's messages, the good-CRC ones alone with crcok_only."""
+    return [[m for m in st.messages if m.crcok or not crcok_only] for st in states]
+
+
 def decode_captures(
     captures: Sequence,
     *,
@@ -174,7 +181,7 @@ def _decode_captures_host(
     the larger shape sticks for later rounds."""
     dev = resolve_device(device)
     dcfg = config or DecoderConfig()
-    mc_box = {"mc": PipelineConfig().max_candidates}
+    shapes = Shapes(PipelineConfig().max_candidates)
     scan_len = BUF_SAMPLES - FULL_LEN_SAMPLES
     buf_bytes = BUF_SAMPLES * 2
 
@@ -204,10 +211,10 @@ def _decode_captures_host(
             work = None
             if live:
                 cand = demod_batch(_upload(x, dev), scan_len=scan_len,
-                                   max_candidates=mc_box["mc"])
+                                   max_candidates=shapes.mc)
                 work = (_Fetch(list(cand)), live, x)
             if pending is not None:
-                _resolve_rows(pending, states, dcfg, mc_box, dev)
+                _resolve_rows(pending, states, dcfg, shapes, dev)
             if work is None:
                 break
             pending = work
@@ -216,33 +223,10 @@ def _decode_captures_host(
             if s is not c:
                 s.close()
 
-    results = []
-    for st in states:
-        msgs = st.messages
-        if crcok_only:
-            msgs = [m for m in msgs if m.crcok]
-        results.append(msgs)
-    return results
+    return _results(states, crcok_only)
 
 
-def _redemod_with_retry(buf: np.ndarray, mc: int, mc_box: dict, dev) -> BlockCandidates:
-    """One buffer demodulated again alone with 4x the candidate room until
-    its exact preamble count fits; the larger shape sticks in mc_box."""
-    while True:
-        mc *= 4
-        big = demod_iq_block(_upload(buf, dev),
-                             scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, max_candidates=mc)
-        try:
-            bc = BlockCandidates.from_device(big)
-            mc_box["mc"] = max(mc_box["mc"], mc)
-            return bc
-        except OverflowError:
-            # every-other-position bound (adjacent preambles are excluded)
-            if mc >= SCAN_POSITIONS // 2 + 1:
-                raise
-
-
-def _resolve_rows(work, states, dcfg, mc_box, dev) -> None:
+def _resolve_rows(work, states, dcfg, shapes, dev) -> None:
     """Resolve the live rows of one fetched round, each against its
     capture's own state."""
     fetch, live, x = work
@@ -251,8 +235,10 @@ def _resolve_rows(work, states, dcfg, mc_box, dev) -> None:
         row = Candidates(*(f[k] for f in host))
         try:
             bc = BlockCandidates.from_device(row)
-        except OverflowError:
-            bc = _redemod_with_retry(x[k], row.pos.shape[0], mc_box, dev)
+        except OverflowError as e:  # the row again alone, with more room
+            bc = shapes.redo(lambda mc: demod_iq_block(
+                _upload(x[k], dev), scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES, max_candidates=mc,
+            ), row.pos.shape[0], e)[1]
         st = states[k]
         if st.resolver is not None:
             st.resolver.resolve_block(bc, st.cache, dcfg, st.stats, st.messages.append)
@@ -280,7 +266,7 @@ def _decode_captures_device(
     dcfg = config or DecoderConfig()
     s_n = len(captures)
     nb = STREAM_BUFFERS
-    shapes = {"mc": PipelineConfig().max_candidates, "mo": 4096}
+    shapes = Shapes(PipelineConfig().max_candidates, mo=4096)
     scan_len = BUF_SAMPLES - FULL_LEN_SAMPLES
     buf_bytes = BUF_SAMPLES * 2
 
@@ -312,7 +298,7 @@ def _decode_captures_device(
             # way decode_capture's per-group cache.clock() does
             now = int(time.time())
             while True:
-                mc, mo = shapes["mc"], shapes["mo"]
+                mc, mo = shapes.mc, shapes.mo
                 s_fit, nb_fit = streams_dispatch_shape(s_n, nb, mc)
                 # the round's cache rows, updated tile by tile on the
                 # device; ca/ct keep the pre-round state for a rerun
@@ -347,18 +333,9 @@ def _decode_captures_device(
                         tile_msgs[k0 + k].extend(
                             messages_from_device_arrays(msg_h[k, :c], meta_h[k, :c])
                         )
-                if peak_n > mc:
-                    if mc >= scan_len // 2 + 1:
-                        raise OverflowError(
-                            f"candidate overflow: a buffer reported {peak_n} "
-                            f"preambles > max_candidates {mc}"
-                        )
-                    shapes["mc"] *= 4  # sticky growth; rerun from the pre state
-                    continue
-                if peak_c > mo:
-                    shapes["mo"] *= 4
-                    continue
-                break
+                # sticky growth; rerun from the pre-round state
+                if not shapes.retry(Peaks(peak_n, total=peak_c), "a buffer"):
+                    break
             ca, ct = ca_t, ct_t
             for k, stt in enumerate(states):
                 stt.messages.extend(tile_msgs[k])
@@ -367,13 +344,7 @@ def _decode_captures_device(
             if s is not c:
                 s.close()
 
-    results = []
-    for stt in states:
-        msgs = stt.messages
-        if crcok_only:
-            msgs = [m for m in msgs if m.crcok]
-        results.append(msgs)
-    return results
+    return _results(states, crcok_only)
 
 
 def decode_capture_sharded(
@@ -433,11 +404,11 @@ def decode_capture_sharded(
         device_resolve = use_device_resolve(rdev)
 
     # chunk-valid from the start; the growth sites keep it so
-    mc_box = {"mc": normalize_max_candidates(max_candidates), "mo": SHARDED_MAX_OUT}
+    shapes = Shapes(normalize_max_candidates(max_candidates), mo=SHARDED_MAX_OUT)
     fns = {}
 
     def get_fn():
-        mc = mc_box["mc"]
+        mc = shapes.mc
         if mc not in fns:
             fns[mc] = make_sharded_demod(
                 mesh, shard_samples=shard_samples, max_candidates=mc,
@@ -462,8 +433,7 @@ def decode_capture_sharded(
             resolver = NativeResolver().resolve_block
         except (OSError, RuntimeError):
             resolver = resolve_block  # the Python twin: the same output
-    ca = torch.as_tensor(cache.addr.astype(np.int64).astype(np.int32), device=rdev)
-    ct = torch.as_tensor(np.clip(cache.ts, 0, 2**31 - 1).astype(np.int32), device=rdev)
+    ca, ct = cache_to_device(cache.addr, cache.ts, rdev)
 
     stream = _as_stream(capture)
     try:
@@ -483,7 +453,7 @@ def decode_capture_sharded(
             iq_main, tail = x[:, : 2 * total], x[:, 2 * total:]
             if device_resolve:
                 ca, ct = _resolve_group_on_device(
-                    get_fn, iq_main, tail, mc_box, dp_n, sp_n, ca, ct, cache, dcfg, st,
+                    get_fn, iq_main, tail, shapes, dp_n, sp_n, ca, ct, cache, dcfg, st,
                     sink, lock,
                 )
                 continue
@@ -494,18 +464,15 @@ def decode_capture_sharded(
                     # retry never sees a partly advanced cache
                     rows = merge_sharded_rows(cand, SCAN_POSITIONS)
                     break
-                except OverflowError:
-                    if mc_box["mc"] >= SCAN_POSITIONS // 2 + 1:
-                        raise
-                    mc_box["mc"] = normalize_max_candidates(mc_box["mc"] * 4)  # sticky
+                except OverflowError as e:
+                    shapes.mc = step(shapes.mc, e, normalize=True)  # sticky
             for _, bc in rows[:n_real]:
                 with lock:
                     resolver(bc, cache, dcfg, st, sink)
     finally:
         if device_resolve:
             # the device cache back into the host cache, also after a cut
-            cache.addr[:] = ca.cpu().numpy().astype(np.uint32)
-            cache.ts[:] = ct.cpu().numpy().astype(np.int64)
+            cache.addr[:], cache.ts[:] = cache_from_device(ca, ct)
         if stream is not capture:
             stream.close()
     if crcok_only:
@@ -513,7 +480,7 @@ def decode_capture_sharded(
     return out
 
 
-def _resolve_group_on_device(get_fn, iq_main, tail, mc_box, dp_n, sp_n, ca, ct, cache,
+def _resolve_group_on_device(get_fn, iq_main, tail, shapes, dp_n, sp_n, ca, ct, cache,
                              dcfg, st, sink, lock):
     """One dp-group of the sharded decode with the sequential replay on the
     device: sharded demod -> per-shard candidate segments ->
@@ -525,7 +492,7 @@ def _resolve_group_on_device(get_fn, iq_main, tail, mc_box, dp_n, sp_n, ca, ct, 
     s_n = dp_n * sp_n
     while True:
         cand = get_fn()(iq_main, tail)
-        mc = mc_box["mc"]
+        mc = shapes.mc
 
         def seg(a: torch.Tensor) -> torch.Tensor:
             return a.reshape((s_n, mc) + tuple(a.shape[2:]))
@@ -535,33 +502,19 @@ def _resolve_group_on_device(get_fn, iq_main, tail, mc_box, dp_n, sp_n, ca, ct, 
             seg(cand.pos), seg(cand.msg1), seg(cand.errors1), seg(cand.gate1),
             seg(cand.msg2), seg(cand.errors2), seg(cand.gate2), cand.n.reshape(s_n),
             row_id.repeat_interleave(sp_n), ca, ct, cache.clock(), dcfg.fix_errors,
-            dcfg.aggressive, n_rows=dp_n, max_out=mc_box["mo"], crcok_only=False,
+            dcfg.aggressive, n_rows=dp_n, max_out=shapes.mo, crcok_only=False,
         )
         n_h, count_h, msg_h, meta_h, stats_h = _Fetch([cand.n, count, msg, meta, stats_d]).get()
-        if int(n_h.max()) > mc:
-            if mc >= SCAN_POSITIONS // 2 + 1:
-                raise OverflowError(
-                    f"candidate overflow: shard reported {int(n_h.max())} "
-                    f"preambles > max_candidates {mc}"
-                )
-            mc_box["mc"] = normalize_max_candidates(mc * 4)
-            continue
-        if int(count_h) > mc_box["mo"]:
-            mc_box["mo"] *= 4
-            continue
-        break
+        if not shapes.retry(Peaks(int(n_h.max()), total=int(count_h)), "shard",
+                            normalize=True):
+            break
     c = int(count_h)
     mms = messages_from_device_arrays(msg_h[:c], meta_h[:c])
     # the counters and the emissions of a group under ONE lock hold: a
     # concurrent reader (the --stats printer, the TUI) never sees the
     # group's counters half applied
     with lock:
-        for name, d in zip(
-            ("valid_preamble", "out_of_phase", "demodulated", "goodcrc",
-             "badcrc", "fixed", "single_bit_fix", "two_bits_fix"),
-            stats_h.tolist(),
-        ):
-            setattr(st, name, getattr(st, name) + d)
+        st.add(stats_h.tolist())
         for mm in mms:
             sink(mm)
     return ca2, ct2

@@ -37,6 +37,9 @@ CARRY_SAMPLES = (FULL_LEN_US - 1) * 2             # 238 samples carried over
 BUF_SAMPLES = BLOCK_SAMPLES + CARRY_SAMPLES       # 131310 magnitude samples
 # scan positions per buffer: j in [0, BUF_SAMPLES - FULL_LEN_SAMPLES)
 SCAN_POSITIONS = BUF_SAMPLES - FULL_LEN_SAMPLES   # 131070
+# the most preamble candidates a buffer can hold: the preamble predicate
+# forbids adjacent hits, so at most every other scan position
+MAX_BUFFER_CANDIDATES = SCAN_POSITIONS // 2 + 1  # 65536
 
 # ---- magnitude scaling (dump1090.c:346-364) -----------------------------------
 MAG_SCALE = 360                  # |iq| in 0..181.02 scaled into uint16 0..65167

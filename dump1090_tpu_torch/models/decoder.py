@@ -136,6 +136,11 @@ class DecoderStats:
     http_requests: int = 0
     sbs_connections: int = 0
 
+    def add(self, counts) -> None:
+        """Add a resolve's eight counts, in STAT_FIELDS order."""
+        for name, d in zip(STAT_FIELDS, counts):
+            setattr(self, name, getattr(self, name) + d)
+
 
 # the eight counters the device path produces per batch, in its stats order
 STAT_FIELDS = (

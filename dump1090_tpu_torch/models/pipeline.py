@@ -13,8 +13,8 @@ so a live buffer's results never wait on the next buffer.  A group's small
 outputs are copied into pinned host memory with non-blocking copies and
 one CUDA event, so the host formats group k while the device computes
 k+1..k+depth.  Exact counts come back with the data; a group that
-overflowed its shapes grows them (sticky x4) and is replayed, with every
-group behind it, from the cache state it started from.
+overflowed its shapes grows them (models/shapes.py) and is replayed, with
+every group behind it, from the cache state it started from.
 
 Host resolve (run, run_source, messages, stream_records): the card
 demodulates `batch_buffers` buffers per dispatch (ops.demod.demod_batch, K1
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..constants import BLOCK_SAMPLES, BUF_SAMPLES, FULL_LEN_SAMPLES, SCAN_POSITIONS
+from ..constants import BLOCK_SAMPLES, BUF_SAMPLES, FULL_LEN_SAMPLES
 from ..io.raw_lines import raw_lines_from_fields
 from ..io.sources import iq_buffers
 from ..ops.demod import (
@@ -56,12 +56,7 @@ from ..ops.demod import (
     preamble_reject_stages,
 )
 from ..ops.magnitude import magnitude_from_iq
-from ..ops.resolve import (
-    clamp_packed_out,
-    demod_resolve_group,
-    interleave_packed,
-    max_candidates_cap,
-)
+from ..ops.resolve import demod_resolve_group, interleave_packed
 from ..utils import spans
 from .decoder import (
     STAT_FIELDS,
@@ -72,7 +67,8 @@ from .decoder import (
     messages_from_device_arrays,
 )
 from .resolver import BlockCandidates, DebugContext, resolve_block
-from .state import state_from_numpy, state_to_numpy
+from .shapes import Shapes, peaks
+from .state import cache_from_device, cache_to_device, state_from_numpy, state_to_numpy
 
 
 @dataclass
@@ -163,6 +159,20 @@ class _Groups:
         self.gen.close()
 
 
+@dataclass(slots=True)
+class _InFlight:
+    """A dispatch group on the device path, from its dispatch to its
+    delivery; the cache states are (addr, ts), `shapes` a Shapes.key."""
+
+    xg: torch.Tensor
+    state_before: tuple
+    fetch: _Fetch
+    state_after: tuple
+    shapes: tuple
+    gid: int
+    n_bufs: int
+
+
 def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host IQ bytes to the device: through pinned memory with a
     non-blocking copy on CUDA, so the upload does not wait for the
@@ -200,12 +210,9 @@ class DemodPipeline:
         # single-threaded reference that polls its sockets between buffers
         # (dump1090.c:2831-2847)
         self._lock = lock if lock is not None else contextlib.nullcontext()
-        # working shapes; sticky growth lives on the INSTANCE so a shared
+        # working shapes (models/shapes.py), on the INSTANCE so a shared
         # PipelineConfig is not mutated
-        self._mc = self.cfg.max_candidates
-        self._mos = None  # emitted short-frame rows per batch (packed)
-        self._mol = None  # emitted long-frame rows per batch (packed)
-        self._mo = None   # emitted message rows per batch (unpacked)
+        self.shapes = Shapes(self.cfg.max_candidates)
         self.stats = DecoderStats()
         self.samples_in = 0      # new samples demodulated (throughput meter)
         self.cache = IcaoCache(clock=clock)
@@ -236,7 +243,7 @@ class DemodPipeline:
     def max_candidates(self) -> int:
         """The candidate slots a buffer has now: cfg.max_candidates until
         the device paths shrink it on quiet air or grow it on overflow."""
-        return self._mc
+        return self.shapes.mc
 
     @property
     def _debugging(self) -> bool:
@@ -327,183 +334,80 @@ class DemodPipeline:
         the JAX package's device path."""
         nb = max(self.cfg.batch_buffers, 1)
         ng = max(self.cfg.dispatch_groups, 1)
-        mc_cap = max_candidates_cap(nb * ng)
-        if self._mo is None:
-            self._mo = max(4096, nb * self._mc // 2)
-        if self._mos is None:
-            # sized so dense real air fits without a first-group overflow
-            # retry; quiet air shrinks via adapt_down
-            self._mos, self._mol = clamp_packed_out(
-                max(2048, nb * self._mc // 4), max(2048, nb * self._mc // 3)
-            )
-        dcfg = self.cfg.decoder
-        dev = self.device
-        ca = torch.as_tensor(self.cache.addr.astype(np.int64).astype(np.int32), device=dev)
-        ct = torch.as_tensor(np.clip(self.cache.ts, 0, 2**31 - 1).astype(np.int32), device=dev)
+        shapes, dcfg = self.shapes, self.cfg.decoder
+        shapes.size(nb)
+        pending: collections.deque[_InFlight] = collections.deque()
+        # the cache state after the last group whose results were delivered
+        delivered = cache_to_device(self.cache.addr, self.cache.ts, self.device)
 
-        def dispatch(xg, ca, ct, gid, n_bufs, replay=False):
+        def tail():
+            """The cache state the next group dispatched starts from."""
+            return pending[-1].state_after if pending else delivered
+
+        def issue(xg, state, gid, n_bufs, replay=False) -> _InFlight:
+            """Dispatch one group from the cache `state`, and start its fetch."""
             with spans.span("pipeline.issue", gid, count=n_bufs):
                 if replay:
-                    spans.mark("pipeline.replay", gid, shapes_now())
+                    spans.mark("pipeline.replay", gid, shapes.key)
                 # packed (the raw path): good-CRC decodes only; unpacked
                 # (run_device): every attempted decode, as the hub needs
                 out = demod_resolve_group(
-                    xg, ca, ct, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
+                    xg, *state, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
                     scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
-                    max_candidates=self._mc, max_out=self._mo,
-                    max_out_short=self._mos, max_out_long=self._mol,
+                    max_candidates=shapes.mc, max_out=shapes.mo,
+                    max_out_short=shapes.mos, max_out_long=shapes.mol,
                     packed=packed, crcok_only=packed, front=self._front,
                 )
-                # start the fetch now: it runs as soon as the group finishes,
+                # the fetch starts now: it runs as soon as the group finishes,
                 # while the next groups compute; the cache stays on the device
-                return _Fetch(out[:-2]), out[-2], out[-1]
+                return _InFlight(xg, state, _Fetch(out[:-2]), tuple(out[-2:]), shapes.key,
+                                 gid, n_bufs)
 
-        # density adaptation: consecutive groups whose peaks sit far below
-        # the shapes shrink them (quiet air stops paying dense-shaped cost);
-        # any overflow grows them back immediately
-        quiet_groups = 0
-
-        def adapt_down(n_h, peak_short, peak_long, peak_total):
-            nonlocal quiet_groups
-            if (int(n_h.max(initial=0)) * 8 <= self._mc
-                    and peak_short * 8 <= self._mos
-                    and peak_long * 8 <= self._mol
-                    and peak_total * 8 <= self._mo):
-                quiet_groups += 1
-            else:
-                quiet_groups = 0
-            if quiet_groups >= 3:
-                quiet_groups = 0
-                self._mc = max(64, self._mc // 4)
-                self._mos = max(2048, self._mos // 4)
-                self._mol = max(2048, self._mol // 4)
-                self._mo = max(4096, self._mo // 4)
-
-        def shapes_now():
-            return (self._mc, self._mos, self._mol, self._mo)
-
-        def finish(work):
-            """Fetch one group; returns (per-batch payloads, replayed
-            cache state or None)."""
-            xg, state_before, fetch, _, _, disp, gid, n_bufs = work
-            # validate against the shapes this group was DISPATCHED with —
-            # adapt_down may have shrunk them while it was in flight, and a
-            # group that fit its own allocation is never replayed
-            mc_d, mos_d, mol_d, mo_d = disp
-            redo = None
+        def finish(rec: _InFlight):
+            """Fetch one group, replayed from the state it started from until
+            its exact counts fit the shapes it RAN with (a shrink while it
+            was in flight replays nothing); returns (the record that fit,
+            its per-batch payloads)."""
             while True:
-                with spans.span("pipeline.fetch.wait", gid, count=n_bufs):
-                    host = fetch.get()
-                n_h, count_h, stats_h = host[0], host[1], host[-1]
-                n_peak = int(n_h.max(initial=0))
-                if packed:
-                    clong_h = host[2]
-                    cs_peak = int((count_h - clong_h).max(initial=0))
-                    cl_peak = int(clong_h.max(initial=0))
-                    ct_peak = 0
-                else:
-                    cs_peak = cl_peak = 0
-                    ct_peak = int(count_h.max(initial=0))
-                if (n_peak <= mc_d and cs_peak <= mos_d and cl_peak <= mol_d
-                        and ct_peak <= mo_d):
+                with spans.span("pipeline.fetch.wait", rec.gid, count=rec.n_bufs):
+                    host = rec.fetch.get()
+                pk, before = peaks(host, packed), shapes.key
+                if not shapes.fit(pk, rec.shapes, packed=packed, n_buffers=nb * ng):
                     break
-                # grow the overflowing shape(s) and replay from the
-                # pre-group state (exact counts: loud, never silent)
-                before = shapes_now()
-                while self._mc < n_peak:
-                    self._mc *= 4
-                if self._mc > mc_cap:
-                    if n_peak > mc_cap:
-                        raise RuntimeError(
-                            f"a buffer reported {n_peak} preamble candidates "
-                            f"but a group of {nb * ng} buffers may hold at "
-                            f"most {mc_cap} per buffer on the device — lower "
-                            f"--tpu-batch"
-                        )
-                    self._mc = mc_cap
-                while self._mos < cs_peak:
-                    self._mos *= 4
-                while self._mol < cl_peak:
-                    self._mol *= 4
-                if packed:
-                    # 16-bit rank field: keep mos+mol under the wire
-                    # format's per-batch emission cap (raises if the peaks
-                    # cannot fit)
-                    self._mos, self._mol = clamp_packed_out(
-                        self._mos, self._mol, cs_peak, cl_peak
-                    )
-                while self._mo < ct_peak:
-                    self._mo *= 4
-                if shapes_now() != before:
-                    spans.mark("pipeline.reshape", gid, shapes_now())
-                fetch, ca2, ct2 = dispatch(xg, *state_before, gid, n_bufs, replay=True)
-                mc_d, mos_d, mol_d, mo_d = shapes_now()
-                redo = (ca2, ct2)
-            before = shapes_now()
-            adapt_down(n_h, cs_peak, cl_peak, ct_peak)
-            if shapes_now() != before:
-                spans.mark("pipeline.reshape", gid, shapes_now())
-            for name, d in zip(STAT_FIELDS, stats_h.sum(axis=0).tolist()):
-                setattr(self.stats, name, getattr(self.stats, name) + d)
+                if shapes.key != before:
+                    spans.mark("pipeline.reshape", rec.gid, shapes.key)
+                rec = issue(rec.xg, rec.state_before, rec.gid, rec.n_bufs, replay=True)
+            if shapes.shrink(pk):
+                spans.mark("pipeline.reshape", rec.gid, shapes.key)
+            self.stats.add(host[-1].sum(axis=0).tolist())
+            rows, count = range(rec.xg.shape[0]), host[1]
             if packed:
-                _, _, clong_h, shorts_h, longs_h, _ = host
-                payloads = [
-                    (int(count_h[g]), int(clong_h[g]), shorts_h[g], longs_h[g])
-                    for g in range(xg.shape[0])
-                ]
-            else:
-                _, _, msg_h, meta_h, _ = host
-                payloads = [
-                    (meta_h[g, : count_h[g]], msg_h[g, : count_h[g]])
-                    for g in range(xg.shape[0])
-                ]
-            return payloads, redo
-
-        # dispatch-ahead depth (PipelineConfig.dispatch_ahead; 0 = auto)
-        depth = self.cfg.dispatch_ahead
-        if depth <= 0:
-            seekable = False
-            if buffers is None and stream is not None:
-                try:
-                    seekable = stream.seekable()
-                except (OSError, AttributeError, ValueError):
-                    seekable = False
-            depth = 3 if (seekable and not self.cfg.loop and self.cfg.throttle_s == 0
-                          and self.cfg.preload != "staged") else 1
-
-        if buffers is not None:
-            it = iter(buffers)
-        else:
-            it = iq_buffers(stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
-        # entries: (xg, state_before, fetch, ca_after, ct_after, shapes, group id, buffers)
-        pending: collections.deque = collections.deque()
-        groups = self._ingest_groups(stream, it, ng, nb)
-        # the cache state after the last group whose results were delivered
-        delivered = (ca, ct)
-
-        def enqueue(xg, ca, ct, gid, n_bufs, replay=False):
-            fetch, ca2, ct2 = dispatch(xg, ca, ct, gid, n_bufs, replay)
-            pending.append((xg, (ca, ct), fetch, ca2, ct2, shapes_now(), gid, n_bufs))
-            return ca2, ct2
+                _, _, clong, shorts, longs, _ = host
+                return rec, [(int(count[g]), int(clong[g]), shorts[g], longs[g]) for g in rows]
+            _, _, msg, meta, _ = host
+            return rec, [(meta[g, : count[g]], msg[g, : count[g]]) for g in rows]
 
         def deliver(early=False):
-            """Fetch the oldest pending group and yield its batches."""
-            nonlocal ca, ct, delivered
-            work = pending.popleft()
+            """Fetch the oldest group in flight and yield its batches; if it
+            was replayed, replay every group behind it, in order."""
+            nonlocal delivered
+            rec = pending.popleft()
             if early:
-                spans.mark(spans.FETCH_EARLY, work[6])
-            payloads, redo = finish(work)
-            delivered = redo or (work[3], work[4])
+                spans.mark(spans.FETCH_EARLY, rec.gid)
+            done, payloads = finish(rec)
+            delivered = done.state_after
             for b, payload in enumerate(payloads):
-                yield work[6], b, payload
-            if redo:  # shapes grew: replay EVERY in-flight group
-                # from the replayed state, in order
-                ca, ct = redo
-                requeue = [(w[0], w[6], w[7]) for w in pending]
+                yield done.gid, b, payload
+            if done is not rec:
+                behind = list(pending)
                 pending.clear()
-                for xg2, gid2, n2 in requeue:
-                    ca, ct = enqueue(xg2, ca, ct, gid2, n2, replay=True)
+                for r in behind:
+                    pending.append(issue(r.xg, tail(), r.gid, r.n_bufs, replay=True))
 
+        depth = self._dispatch_depth(stream, buffers)
+        it = iter(buffers) if buffers is not None else iq_buffers(
+            stream, loop=self.cfg.loop, throttle_s=self.cfg.throttle_s)
+        groups = self._ingest_groups(stream, it, ng, nb)
         try:
             while True:
                 # while no next input waits, fetch the oldest groups: the
@@ -514,7 +418,7 @@ class DemodPipeline:
                 if item is not None:
                     xg, n_bufs, gid = item
                     self.samples_in += n_bufs * BLOCK_SAMPLES
-                    ca, ct = enqueue(xg, ca, ct, gid, n_bufs)
+                    pending.append(issue(xg, tail(), gid, n_bufs))
                 # at most `depth` groups in flight while the stream lives;
                 # drain everything at EOF
                 while len(pending) > (depth if item is not None else 0):
@@ -525,8 +429,20 @@ class DemodPipeline:
             groups.close()
             # device cache -> host cache, from the last group whose results
             # were delivered (an early close leaves later groups unvalidated)
-            self.cache.addr[:] = delivered[0].cpu().numpy().astype(np.uint32)
-            self.cache.ts[:] = delivered[1].cpu().numpy().astype(np.int64)
+            self.cache.addr[:], self.cache.ts[:] = cache_from_device(*delivered)
+
+    def _dispatch_depth(self, stream, buffers) -> int:
+        """PipelineConfig.dispatch_ahead, or its auto value."""
+        if self.cfg.dispatch_ahead > 0:
+            return self.cfg.dispatch_ahead
+        seekable = False
+        if buffers is None and stream is not None:
+            try:
+                seekable = stream.seekable()
+            except (OSError, AttributeError, ValueError):
+                seekable = False
+        return 3 if (seekable and not self.cfg.loop and self.cfg.throttle_s == 0
+                     and self.cfg.preload != "staged") else 1
 
     def _ingest_groups(self, stream, it, ng: int, nb: int) -> _Groups:
         """The device-resident dispatch groups (xg uint8 (g, nb, nbytes),
@@ -647,7 +563,7 @@ class DemodPipeline:
         returns the work item (buf, fetch).  The fetch yields the eight
         Candidates fields and, when debugging, the magnitudes and the
         preamble reject codes (the --debug dumps read both on the host)."""
-        mc = max_candidates or self._mc
+        mc = max_candidates or self.shapes.mc
         scan_len = BUF_SAMPLES - FULL_LEN_SAMPLES
         x = _upload(buf, self.device)
         if not self._debugging:
@@ -718,7 +634,7 @@ class DemodPipeline:
             x = np.full((nb, bufs[0].shape[0]), 127, dtype=np.uint8)
             x[:n_real] = np.stack(bufs)
             cand = demod_batch(_upload(x, self.device), scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
-                               max_candidates=self._mc, front=self._front)
+                               max_candidates=self.shapes.mc, front=self._front)
             yield x, _Fetch(list(cand)), n_real
 
     def _stream_batched(self, stream, emit, drain: list | None = None):
@@ -793,8 +709,9 @@ class DemodPipeline:
         row = Candidates(*(f[b] for f in host))
         try:
             return BlockCandidates.from_device(row)
-        except OverflowError:
-            return self._demod_retry(buf, row.pos.shape[0])[1]
+        except OverflowError as e:
+            return self.shapes.redo(lambda mc: self._demod(buf, max_candidates=mc)[1].get(),
+                                    row.pos.shape[0], e)[1]
 
     def _resolve_batch(self, work, emit, drain: list | None):
         from ..native import records_to_messages
@@ -816,31 +733,14 @@ class DemodPipeline:
                 self._resolve_block(bc, emit)
             yield from self._drain(drain)
 
-    def _demod_retry(self, buf: np.ndarray, mc: int):
-        """Demodulate one buffer again with 4x the candidate room until its
-        exact preamble count fits; returns (fetched fields, BlockCandidates).
-        The larger shape sticks for the rest of the session, so sustained
-        dense air retries once, not per buffer."""
-        while True:
-            mc *= 4
-            host = self._demod(buf, max_candidates=mc)[1].get()
-            try:
-                bc = BlockCandidates.from_device(Candidates(*host[:8]))
-                self._mc = max(self._mc, mc)
-                return host, bc
-            except OverflowError:
-                # true ceiling: the preamble predicate forbids adjacent
-                # hits, so a buffer holds at most every other position
-                if mc >= SCAN_POSITIONS // 2 + 1:
-                    raise
-
     def _resolve(self, work, emit) -> None:
         buf, fetch = work
         host = fetch.get()
         try:
             bc = BlockCandidates.from_device(Candidates(*host[:8]))
-        except OverflowError:
-            host, bc = self._demod_retry(buf, host[1].shape[0])
+        except OverflowError as e:
+            host, bc = self.shapes.redo(lambda mc: self._demod(buf, max_candidates=mc)[1].get(),
+                                        host[1].shape[0], e)
         if not self._debugging:
             with self._lock:
                 self._resolve_block(bc, emit)

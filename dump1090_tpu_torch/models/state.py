@@ -5,7 +5,8 @@ cache and the stat counters.  The JAX package keeps them as numpy arrays
 (IcaoCache.addr uint32 and .ts int64, and the DecoderStats counters);
 state_from_numpy turns those into the port's form on a device, and
 state_to_numpy turns it back.  DemodPipeline.load_state / .state hand the
-state to and from a pipeline.
+state to and from a pipeline; cache_to_device / cache_from_device convert
+the cache alone, as the device paths chain it.
 """
 
 from __future__ import annotations
@@ -40,18 +41,24 @@ def state_from_numpy(cache_addr, cache_ts, stats, device) -> DecodeState:
     counts = np.asarray(stats, dtype=np.int64)
     if counts.shape != (len(STAT_FIELDS),):
         raise ValueError(f"expected {len(STAT_FIELDS)} counters, got {counts.shape}")
-    return DecodeState(
-        cache_addr=torch.as_tensor(addr.astype(np.int64).astype(np.int32), device=device),
-        cache_ts=torch.as_tensor(np.clip(ts, 0, 2**31 - 1).astype(np.int32), device=device),
-        stats=torch.as_tensor(counts, device=device),
-    )
+    addr_d, ts_d = cache_to_device(addr, ts, device)
+    return DecodeState(cache_addr=addr_d, cache_ts=ts_d,
+                       stats=torch.as_tensor(counts, device=device))
 
 
 def state_to_numpy(state: DecodeState) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """DecodeState -> (addr uint32 (1024,), ts int64 (1024,), stats int64
     (8,)): the JAX package's IcaoCache array types."""
-    return (
-        state.cache_addr.cpu().numpy().astype(np.uint32),
-        state.cache_ts.cpu().numpy().astype(np.int64),
-        state.stats.cpu().numpy().astype(np.int64),
-    )
+    return (*cache_from_device(state.cache_addr, state.cache_ts),
+            state.stats.cpu().numpy().astype(np.int64))
+
+
+def cache_to_device(addr, ts, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """IcaoCache arrays -> the device paths' int32 tensors on `device`."""
+    return (torch.as_tensor(np.asarray(addr).astype(np.int64).astype(np.int32), device=device),
+            torch.as_tensor(np.clip(ts, 0, 2**31 - 1).astype(np.int32), device=device))
+
+
+def cache_from_device(addr: torch.Tensor, ts: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """The device paths' cache tensors -> IcaoCache arrays."""
+    return addr.cpu().numpy().astype(np.uint32), ts.cpu().numpy().astype(np.int64)

@@ -50,8 +50,8 @@ from ..constants import (
     ICAO_CACHE_LEN,
     ICAO_CACHE_TTL,
     LONG_MSG_BITS,
+    MAX_BUFFER_CANDIDATES,
     PREAMBLE_US,
-    SCAN_POSITIONS,
     SHORT_MSG_BITS,
 )
 from . import _cuda
@@ -174,10 +174,9 @@ def normalize_max_candidates(mc: int) -> int:
 
 def max_candidates_cap(n_buffers: int) -> int:
     """Largest normalized max_candidates a group of n_buffers may grow to
-    under MAX_GROUP_SLOTS, and never more than a buffer can hold: at most
-    SCAN_POSITIONS // 2 + 1 candidates, since the predicate forbids adjacent
-    hits."""
-    cap = min(MAX_GROUP_SLOTS // max(n_buffers, 1), SCAN_POSITIONS // 2 + 1)
+    under MAX_GROUP_SLOTS, and never more than a buffer can hold
+    (MAX_BUFFER_CANDIDATES)."""
+    cap = min(MAX_GROUP_SLOTS // max(n_buffers, 1), MAX_BUFFER_CANDIDATES)
     if cap > RESOLVE_CHUNK:
         cap -= cap % RESOLVE_CHUNK
     return cap

@@ -282,49 +282,40 @@ class Group:
         out = self.outputs(x, ca, ct)
         return _Fetch(out[:6]), out[6], out[7]
 
-    @staticmethod
-    def _peaks(host) -> tuple[int, int, int]:
-        n, count, clong = host[:3]
-        return int(n.max()), int((count - clong).max()), int(clong.max())
-
     def fetch(self, fetch) -> list:
         """Wait for a group's outputs (n, count, count_long, shorts, longs,
         stats as numpy); raise on any overflow of the shapes (exact counts:
         never a silent truncation)."""
+        from ..models.shapes import peaks
+
         host = fetch.get()
-        n_peak, cs_peak, cl_peak = self._peaks(host)
-        if n_peak > self.mc:
+        pk = peaks(host, packed=True)
+        if pk.n > self.mc:
             raise OverflowError("candidate overflow")
-        if cs_peak > self.mos:
+        if pk.short > self.mos:
             raise OverflowError("short-frame overflow")
-        if cl_peak > self.mol:
+        if pk.long > self.mol:
             raise OverflowError("long-frame overflow")
-        self.peaks["shorts"] = max(self.peaks["shorts"], cs_peak)
-        self.peaks["longs"] = max(self.peaks["longs"], cl_peak)
+        self.peaks["shorts"] = max(self.peaks["shorts"], pk.short)
+        self.peaks["longs"] = max(self.peaks["longs"], pk.long)
         return host
 
     def fit(self, x) -> tuple:
-        """Run group x from a fresh cache, growing each shape it overflows
-        x4 and replaying (the product pipeline's sticky rule; the short and
-        long caps kept within the packed rank field) until it fits.
-        Returns (its fetched outputs, ca', ct')."""
+        """Run group x from a fresh cache, growing the shapes it overflows
+        and replaying (the product pipeline's rule, models.shapes.Shapes.fit,
+        with no cap on the candidates) until it fits.  Returns (its fetched
+        outputs, ca', ct')."""
         from ..models.pipeline import _Fetch
-        from ..ops.resolve import clamp_packed_out
+        from ..models.shapes import Shapes, peaks
 
         zero = torch.zeros(1024, dtype=torch.int32, device=x.device)
         while True:
             out = self.outputs(x, zero, zero)
             host = _Fetch(out[:6]).get()
-            n_peak, cs_peak, cl_peak = self._peaks(host)
-            if n_peak <= self.mc and cs_peak <= self.mos and cl_peak <= self.mol:
+            shapes = Shapes(self.mc, self.mos, self.mol, mo=0)
+            if not shapes.fit(peaks(host, packed=True), shapes.key, packed=True):
                 return host, out[6], out[7]
-            while self.mc < n_peak:
-                self.mc *= 4
-            while self.mos < cs_peak:
-                self.mos *= 4
-            while self.mol < cl_peak:
-                self.mol *= 4
-            self.mos, self.mol = clamp_packed_out(self.mos, self.mol, cs_peak, cl_peak)
+            self.mc, self.mos, self.mol = shapes.mc, shapes.mos, shapes.mol
 
     @staticmethod
     def format(host) -> tuple[int, bytes]:

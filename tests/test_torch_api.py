@@ -69,14 +69,14 @@ def test_run_device_matches_jax(captures, mode, jax_native):
         decoder=DecoderConfig(fix_errors=fix, aggressive=aggressive),
         batch_buffers=2, dispatch_groups=2, max_candidates=16),
         clock=lambda: NOW, device="cpu")
-    pj._mo = pt._mo = 64
+    pj._mo = pt.shapes.mo = 64
     pj.run_device(io.BytesIO(captures[0]), want.append)
     pt.run_device(io.BytesIO(captures[0]), got.append)
     assert _dicts(got) == _dicts(want)
     assert dataclasses.astuple(pt.stats) == dataclasses.astuple(pj.stats)
     np.testing.assert_array_equal(pt.cache.addr, pj.cache.addr)
     np.testing.assert_array_equal(pt.cache.ts, pj.cache.ts)
-    assert pt._mc > 16 and pt._mo > 64, "sticky growth should have fired"
+    assert pt.shapes.mc > 16 and pt.shapes.mo > 64, "sticky growth should have fired"
     assert any(not m.crcok for m in got) and sum(m.crcok for m in got) >= 300
     if aggressive:
         assert pt.stats.two_bits_fix > 0

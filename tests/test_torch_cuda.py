@@ -310,7 +310,7 @@ def test_host_path_on_card_equals_cpu_with_k1_checked_at_its_shapes(cuda, monkey
             _cuda.reset_launches()
             p.run(io.BytesIO(data), msgs.append)
             # a native record becomes its ModesMessage on the way
-            outs[dev] = ([dataclasses.astuple(m) for m in msgs], p.stats, p._mc)
+            outs[dev] = ([dataclasses.astuple(m) for m in msgs], p.stats, p.shapes.mc)
             if dev == "cuda":
                 assert _cuda.launches["gather_windows"] > 0
         assert outs["cuda"] == outs["cpu"] and outs["cuda"][2] == 1024

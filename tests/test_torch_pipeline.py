@@ -74,7 +74,7 @@ def test_stream_raw_device_matches_jax(capture, jax_results, mode, depth):
     assert _counters(p.stats) == stats_j
     np.testing.assert_array_equal(p.cache.addr, addr_j)
     np.testing.assert_array_equal(p.cache.ts, ts_j)
-    assert p._mc > 16, "sticky growth should have fired"
+    assert p.shapes.mc > 16, "sticky growth should have fired"
     assert len(raw.split()) >= 100
     if mode == "fix":
         assert p.stats.fixed > 0
@@ -503,7 +503,7 @@ def test_host_path_matches_jax_and_run_device(traffic, mode, native, request):
     assert got == want and _counters(p.stats) == _counters(pj.stats)
     np.testing.assert_array_equal(p.cache.addr, pj.cache.addr)
     np.testing.assert_array_equal(p.cache.ts, pj.cache.ts)
-    assert p._mc == pj._mc > 16, "the overflow retry should have grown the shape"
+    assert p.shapes.mc == pj._mc > 16, "the overflow retry should have grown the shape"
     dev = DemodPipeline(PipelineConfig(decoder=DecoderConfig(fix_errors=fix, aggressive=aggressive),
                                        batch_buffers=2, dispatch_groups=2),
                         clock=lambda: NOW, device="cpu")
@@ -593,6 +593,7 @@ def test_demod_retry_grows_x4_sticks_and_stops_at_the_ceiling(capture, monkeypat
     4x until it fits, the shape sticks, and past the every-other-position
     ceiling the overflow raises."""
     from dump1090_tpu_torch.models import pipeline as pl
+    from dump1090_tpu_torch.models import shapes as shapes_mod
 
     shapes = []
     real = pl.demod_iq_block
@@ -607,8 +608,8 @@ def test_demod_retry_grows_x4_sticks_and_stops_at_the_ceiling(capture, monkeypat
     p.run(io.BytesIO(capture), lambda mm: None)
     # buffer 2 was enqueued at 16 before buffer 1's retries (64, 256) grew
     # the shape; its own retry starts from the 16 it was demodulated with
-    assert shapes == [16, 16, 64, 256, 256, 64, 256, 256, 256] and p._mc == 256
-    monkeypatch.setattr(pl, "SCAN_POSITIONS", 100)
+    assert shapes == [16, 16, 64, 256, 256, 64, 256, 256, 256] and p.shapes.mc == 256
+    monkeypatch.setattr(shapes_mod, "MAX_BUFFER_CANDIDATES", 100 // 2 + 1)
     with pytest.raises(OverflowError):
         DemodPipeline(PipelineConfig(max_candidates=4), device="cpu",
                       native=False).run(io.BytesIO(capture), lambda mm: None)

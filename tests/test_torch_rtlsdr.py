@@ -150,7 +150,7 @@ def test_run_source_device_equals_run_source_and_jax(stub_lib, jax_native, monke
     assert sum(m["crcok"] for m in msgs) >= 100 and not all(m["crcok"] for m in msgs)
     assert runs["device"][2].samples_in == 2 * DATA_LEN_BYTES // 2
     # the device path took the emission shapes; the host path never does
-    assert runs["device"][2]._mo is not None and runs["host"][2]._mo is None
+    assert runs["device"][2].shapes.mo is not None and runs["host"][2].shapes.mo is None
     np.testing.assert_array_equal(runs["device"][2].cache.addr, runs["jax"][2].cache.addr)
 
 
