@@ -811,7 +811,7 @@ def verbose_cli_phase(first: Path, raw_want: bytes, planted: list, n_blocks: int
     give the crcok messages' addresses, and a `python -m dump1090_tpu_torch`
     subprocess with no --device the same bytes.  Host time: the message
     decode (messages_from_device_arrays) and the hub (use_message); device
-    time: CUDA events around each dispatch (marks=)."""
+    time: CUDA events around each dispatch (timed_dispatches)."""
     from dump1090_tpu_torch.constants import BLOCK_SAMPLES
     from dump1090_tpu_torch.models import pipeline as pl
     from dump1090_tpu_torch.models.decoder import DecoderConfig, IcaoCache, decode_message
@@ -819,14 +819,8 @@ def verbose_cli_phase(first: Path, raw_want: bytes, planted: list, n_blocks: int
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.utils.display import display_message
 
-    decode_s, hub_s, n_msgs, shown, dispatches = [0.0], [0.0], [0], [], []
-    real_dispatch = pl.demod_resolve_group
+    decode_s, hub_s, n_msgs, shown = [0.0], [0.0], [0], []
     real_decode, real_use = pl.messages_from_device_arrays, MessageHub.use_message
-
-    def dispatch(*a, **k):
-        marks = []
-        dispatches.append(marks)
-        return real_dispatch(*a, marks=marks, **k)
 
     def decode(*a):
         t0 = time.perf_counter()
@@ -843,18 +837,19 @@ def verbose_cli_phase(first: Path, raw_want: bytes, planted: list, n_blocks: int
             shown.append(mm)
 
     verbose = tmp / "verbose.txt"
-    pl.demod_resolve_group, pl.messages_from_device_arrays = dispatch, decode
+    pl.messages_from_device_arrays = decode
     MessageHub.use_message = use
     try:
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
-        wall = run_cli(["--ifile", str(first)], verbose)
-        launches = dict(_cuda.launches)
+        with timed_dispatches() as dispatches:
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            wall = run_cli(["--ifile", str(first)], verbose)
+            launches = dict(_cuda.launches)
     finally:
-        pl.demod_resolve_group, pl.messages_from_device_arrays = real_dispatch, real_decode
+        pl.messages_from_device_arrays = real_decode
         MessageHub.use_message = real_use
     # device time of each dispatch (a replayed group counts twice)
-    device_ms = [m[0][1].elapsed_time(m[-1][1]) for m in dispatches]
+    device_ms = [d.device_ms() for d in dispatches]
     text = verbose.read_text()
     hex_lines = "".join(ln + "\n" for ln in text.splitlines() if ln.startswith("*"))
     if hex_lines.encode() != raw_want:
@@ -1547,38 +1542,31 @@ def live_phase(data: bytes, dev: torch.device, tmp: Path, n_live: int = 64) -> t
         raise AssertionError("run_source_device differs from run_device on the same file")
 
     # the radio's own pace: what a dongle would deliver
-    batch_t, last_emit, rt_msgs, marks = [], {}, [], []
-    real_decode, real_dispatch = pl.messages_from_device_arrays, pl.demod_resolve_group
+    batch_t, last_emit, rt_msgs = [], {}, []
+    real_decode = pl.messages_from_device_arrays
 
     def decode(*a):
         batch_t.append(time.perf_counter())
         return real_decode(*a)
 
-    def dispatch(*a, **k):
-        marks.append([])
-        t0 = time.perf_counter()
-        out = real_dispatch(*a, marks=marks[-1], **k)
-        marks[-1].append(("issue_s", time.perf_counter() - t0))
-        return out
-
     def on_message(mm):
         last_emit[len(batch_t) - 1] = time.perf_counter()
         rt_msgs.append(mm)
 
-    pl.messages_from_device_arrays, pl.demod_resolve_group = decode, dispatch
+    pl.messages_from_device_arrays = decode
     try:
-        with stub_radio(lib, air, 65_536):
+        with stub_radio(lib, air, 65_536), timed_dispatches() as marks:
             rt_handed, rt = [], pipeline()
             t0 = time.perf_counter()
             rt.run_source_device(handed_over(RtlSdrSource(err=io.StringIO()).buffers(),
                                              rt_handed), on_message)
             rt_s = time.perf_counter() - t0
     finally:
-        pl.messages_from_device_arrays, pl.demod_resolve_group = real_decode, real_dispatch
+        pl.messages_from_device_arrays = real_decode
     # per dispatch: device time between the first and the last stage event,
     # and the host's time to issue it (a replayed buffer counts twice)
-    device_ms = [m[0][1].elapsed_time(m[-2][1]) for m in marks]
-    issue_ms = [m[-1][1] * 1e3 for m in marks]
+    device_ms = [d.device_ms() for d in marks]
+    issue_ms = [d.issue_s * 1e3 for d in marks]
     done = [last_emit.get(k, batch_t[k]) for k in range(len(batch_t))]
     latency = [(done[k] - rt_handed[k][0]) * 1e3 for k in range(len(done))]
     after_next = [(done[k] - rt_handed[k + 1][0]) * 1e3 for k in range(len(done) - 1)]
@@ -1965,44 +1953,124 @@ def crcok_phase(data: bytes, dev: torch.device) -> dict:
 def kernel_inputs(pick, kinds=("k1", "k2")):
     """Record K1's, K2's and K4's inputs on the pipeline's dispatch path
     (ops.demod.gather_row_windows, ops.resolve.resolve_words and the
-    dispatch's ops.resolve.candidate_passes_window) while the block runs.
+    dispatch's ops.resolve.candidate_passes_window) while the block runs,
+    at every dispatch, eager or replayed from its CUDA graph.
     pick(kind, mc, n) names the record a call belongs to (kind "k1", "k2"
     or "k4", mc its candidate slots a buffer, n K1's rows or K2's or K4's
     slots), or None; it is asked only for the kinds in `kinds`.  K4's mc
     is that of the thread's last K1 call, the same dispatch's window
     gather.  A name keeps the tensors (cloned before the call) of the last
-    call given it.
+    call given it.  A call inside a graph's capture runs nothing: its
+    tensors are the graph's own, so they are kept and cloned after each
+    replay of it (models/dispatch_graph.py), which is asked to pick as an
+    eager call is.
     Yields {(name, kind): (args, kwargs)}; thread-safe, for the soak's
     planes."""
     import threading
 
+    from dump1090_tpu_torch.models import dispatch_graph as dg
     from dump1090_tpu_torch.ops import demod, resolve
 
     rec, lock, local = {}, threading.Lock(), threading.local()
     real = {"k1": demod.gather_row_windows, "k2": resolve.resolve_words,
             "k4": resolve.candidate_passes_window}
+    real_init, real_replay = dg.Graph.__init__, dg.Graph.replay
+
+    def keep(kind, mc, a, k):
+        if kind == "k1":
+            local.mc = mc
+        name = pick(kind, mc, a[0].shape[0]) if kind in kinds else None
+        if name is not None:
+            kept = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+            with lock:
+                rec[(name, kind)] = (kept, dict(k))
 
     def wrap(kind, mc_of):
         def call(*a, **k):
             mc = mc_of(a)
-            if kind == "k1":
-                local.mc = mc
-            name = pick(kind, mc, a[0].shape[0]) if kind in kinds else None
-            if name is not None:
-                kept = tuple(x.clone() if torch.is_tensor(x) else x for x in a)
-                with lock:
-                    rec[(name, kind)] = (kept, dict(k))
+            if torch.cuda.is_current_stream_capturing():
+                if kind == "k1":
+                    local.mc = mc
+                local.captured.append((kind, mc, a, k))
+            else:
+                keep(kind, mc, a, k)
             return real[kind](*a, **k)
         return call
+
+    def init(self, *a, **k):
+        local.captured = []
+        real_init(self, *a, **k)
+        self.smoke_calls = local.captured
+
+    def replay(self, *a, **k):
+        out = real_replay(self, *a, **k)
+        for kind, mc, args, kw in getattr(self, "smoke_calls", ()):
+            keep(kind, mc, args, kw)
+        return out
 
     demod.gather_row_windows = wrap("k1", lambda a: a[1].shape[1])
     resolve.resolve_words = wrap("k2", lambda a: a[8])
     resolve.candidate_passes_window = wrap("k4", lambda a: getattr(local, "mc", None))
+    dg.Graph.__init__, dg.Graph.replay = init, replay
     try:
         yield rec
     finally:
         demod.gather_row_windows, resolve.resolve_words = real["k1"], real["k2"]
         resolve.candidate_passes_window = real["k4"]
+        dg.Graph.__init__, dg.Graph.replay = real_init, real_replay
+
+
+@dataclasses.dataclass
+class Dispatched:
+    """One dispatch of the device path: its (stage, CUDA event) marks (a
+    replayed graph's are "start" and "end" around the replay), when its
+    issue began on the host and how long it took."""
+
+    marks: list
+    stamp: float
+    issue_s: float = 0.0
+
+    def device_ms(self) -> float:
+        return self.marks[0][1].elapsed_time(self.marks[-1][1])
+
+
+@contextlib.contextmanager
+def timed_dispatches():
+    """Every dispatch of the pipeline's device path while the block runs,
+    as a Dispatched, in the order issued: an eager one (demod_resolve_group
+    with its per-stage `marks`) or a replay of its shape's CUDA graph
+    (models/dispatch_graph.py, events around the replay).  A capture runs
+    nothing and is no dispatch: the replay after it is.  Thread-safe."""
+    from dump1090_tpu_torch.models import dispatch_graph as dg
+    from dump1090_tpu_torch.models import pipeline as pl
+
+    out, real_dispatch, real_replay = [], pl.demod_resolve_group, dg.Graph.replay
+
+    def dispatch(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            return real_dispatch(*a, **k)
+        d = Dispatched([], time.perf_counter())
+        out.append(d)
+        result = real_dispatch(*a, marks=d.marks, **k)
+        d.issue_s = time.perf_counter() - d.stamp
+        return result
+
+    def replay(self, *a, **k):
+        d = Dispatched([], time.perf_counter())
+        out.append(d)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        result = real_replay(self, *a, **k)
+        end.record()
+        d.marks += [("start", start), ("end", end)]
+        d.issue_s = time.perf_counter() - d.stamp
+        return result
+
+    pl.demod_resolve_group, dg.Graph.replay = dispatch, replay
+    try:
+        yield out
+    finally:
+        pl.demod_resolve_group, dg.Graph.replay = real_dispatch, real_replay
 
 
 def check_kernel_inputs(rec: dict, where: str) -> dict:
@@ -2028,6 +2096,8 @@ def check_kernel_inputs(rec: dict, where: str) -> dict:
                                          "bound_ms")}
         if (name, "k2") in rec:
             walk, _ = rec[(name, "k2")]
+            if torch.is_tensor(walk[7]):  # a replay's clock, the graph's own tensor
+                walk = (*walk[:7], int(walk[7]), *walk[8:])
             got = resolve.resolve_words(*walk)
             err = max(max_abs_err(g, w) for g, w in zip(got, resolve.resolve_words_plain(*walk)))
             torch.cuda.synchronize()
@@ -2132,11 +2202,10 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
     one there (the dense air that overflows, over a cache aged past the
     TTL) and its first after the regrowth (the replay, aged cache), under
     the live `now`, and each kernel is held against its plain version on
-    them.  Device time: CUDA events around each dispatch (marks=), summed
-    over both planes.  Returns the launches of the card passes."""
+    them.  Device time: CUDA events around each dispatch
+    (timed_dispatches), summed over both planes.  Returns the launches of the card passes."""
     import threading
 
-    from dump1090_tpu_torch.models import pipeline as pl
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.tools import soak_device
 
@@ -2144,13 +2213,6 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
         ["--wall-minutes", str(window_min), "--wall-messages", str(window_min),
          "--batch", "16", "--groups", "2", "--seed", str(seed)])
     specs = {plane: soak_device.make_spec(args, plane) for plane in soak_device.PLANES}
-    spans, real_dispatch = [], pl.demod_resolve_group
-
-    def dispatch(*a, **k):
-        marks = []
-        spans.append(marks)
-        return real_dispatch(*a, marks=marks, **k)
-
     stage = {}  # (plane, kind) -> "shrunk" from the first dispatch at 64, then "regrown"
 
     def pick(kind, mc, n):
@@ -2169,16 +2231,12 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    pl.demod_resolve_group = dispatch
-    try:
-        with contextlib.redirect_stdout(sys.stderr), \
-                kernel_inputs(pick, ("k1", "k2", "k4")) as rec:
-            report = soak_device.soak(specs, dev)  # its PASS/FAIL lines go to stderr
-    finally:
-        pl.demod_resolve_group = real_dispatch
+    with contextlib.redirect_stdout(sys.stderr), timed_dispatches() as spans, \
+            kernel_inputs(pick, ("k1", "k2", "k4")) as rec:
+        report = soak_device.soak(specs, dev)  # its PASS/FAIL lines go to stderr
     launches = dict(_cuda.launches)  # the oracles run in CPU subprocesses
     wall = time.perf_counter() - t0
-    device_s = sum(m[0][1].elapsed_time(m[-1][1]) for m in spans) / 1e3
+    device_s = sum(d.device_ms() for d in spans) / 1e3
     for plane, r in report.items():
         f = r["facts"]
         if not r["ok"]:
@@ -2189,6 +2247,11 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
             raise AssertionError(f"soak {plane}: no aircraft was evicted: {f}")
     if any(launches[k] <= 0 for k in ("gather_windows", "candidate_passes", "resolve_words")):
         raise AssertionError(f"soak: a kernel did not launch: {launches}")
+    # both planes' dispatches, eager or replayed, each one of every kernel:
+    # a plane's capture beside the other's dispatches leaves the counts true
+    if any(launches[k] != len(spans) for k in ("gather_windows", "candidate_passes",
+                                                 "resolve_words")):
+        raise AssertionError(f"soak: {launches} launches for {len(spans)} dispatches")
     want = {(f"{p}/{at}", kind) for p in report for at in ("shrunk", "regrown")
             for kind in ("k1", "k2", "k4")}
     if not want <= set(rec):
@@ -2205,7 +2268,7 @@ def soak_phase(seed: int, dev: torch.device, window_min: float = 2.5) -> dict:
                                     for p, r in report.items()},
           "oracle_s": next(iter(report.values()))["oracle_s"], "phase_s": wall,
           "dispatch_device_s": device_s, "device_share": device_s / (window_min * 60),
-          "launches": launches, "kernels_at_shapes": kernels})
+          "launches": launches, "dispatches": len(spans), "kernels_at_shapes": kernels})
     return launches
 
 
@@ -2249,7 +2312,6 @@ def stdin_net_phase(iq: bytes, dev: torch.device, tmp: Path) -> dict:
     (the feed outruns the decode) and over the whole run, against the
     65.536 ms of air a buffer holds.  Returns the in-process run's
     launches."""
-    from dump1090_tpu_torch.models import pipeline as pl
     from dump1090_tpu_torch.ops import _cuda
     from dump1090_tpu_torch.tools import net_capture
 
@@ -2275,26 +2337,20 @@ def stdin_net_phase(iq: bytes, dev: torch.device, tmp: Path) -> dict:
     if card["sbs"].count(b"MSG,3,") < 1:
         raise AssertionError("stdin --net: no MSG,3 in the SBS stream")
 
-    stamps, marks = [], []
-    real_dispatch = pl.demod_resolve_group
-
-    def dispatch(*a, **k):
-        stamps.append(time.perf_counter())
-        marks.append([])
-        return real_dispatch(*a, marks=marks[-1], **k)
-
     stdin, real_stdin = _Stdin(iq), sys.stdin
-    pl.demod_resolve_group, sys.stdin = dispatch, stdin
+    sys.stdin = stdin
     try:
-        with kernel_inputs(lambda kind, mc, n: "stdin") as rec:
+        with timed_dispatches() as dispatches, \
+                kernel_inputs(lambda kind, mc, n: "stdin") as rec:
             torch.cuda.synchronize()
             _cuda.reset_launches()
             t0 = time.perf_counter()
             wall = run_cli(["--ifile", "-", "--raw"], tmp / "stdin_raw.txt")
             launches = dict(_cuda.launches)
     finally:
-        pl.demod_resolve_group, sys.stdin = real_dispatch, real_stdin
+        sys.stdin = real_stdin
         stdin.close()
+    stamps = [d.stamp for d in dispatches]
     if (tmp / "stdin_raw.txt").read_bytes() != want:
         raise AssertionError("--ifile - --raw differs from --ifile FILE --raw")
     if not (launches["gather_windows"] == launches["resolve_words"] == len(stamps) >= n_bufs):
@@ -2302,7 +2358,7 @@ def stdin_net_phase(iq: bytes, dev: torch.device, tmp: Path) -> dict:
                              f"launches {launches}")
     kernels = check_kernel_inputs(rec, "stdin")
     per_buf = np.diff([t0] + stamps) * 1e3
-    device_ms = [m[0][1].elapsed_time(m[-1][1]) for m in marks]
+    device_ms = [d.device_ms() for d in dispatches]
     emit({"phase": "stdin_net", "buffers": n_bufs, "buffer_ms": 65.536,
           "net_raw_equal_cpu": True, "net_raw_equal_file": True, "net_sbs_equal_cpu": True,
           "raw_lines": card["raw"].count(b"\n"), "sbs_lines": card["sbs"].count(b"\n"),

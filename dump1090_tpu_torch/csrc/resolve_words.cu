@@ -42,7 +42,9 @@
 //
 // What the design does about it:
 //
-//  * The TTL is folded out of the chain.  `now` is one value per launch and
+//  * The TTL is folded out of the chain.  `now` is one value per launch (K2
+//    reads it from a one-element device tensor, so that a CUDA graph
+//    replays the launch at a new clock; K3 takes it as an argument) and
 //    every write stores ts = now, so whether an input entry is fresh is fixed
 //    for the walk, and a written entry is always fresh.  One array
 //    live[h] = (ca[h] != 0 && age <= 60) ? ca[h] : 0, built once in
@@ -646,11 +648,12 @@ resolve_words_kernel(const int* __restrict__ pf, const int* __restrict__ w1,
                      const int* __restrict__ nbuf, const int* __restrict__ ca_in,
                      const int* __restrict__ ct_in, int* __restrict__ words,
                      int* __restrict__ ca_out, int* __restrict__ ct_out,
-                     int* __restrict__ counts, int n_buffers, int mc, int now) {
+                     int* __restrict__ counts, int n_buffers, int mc,
+                     const int* __restrict__ now) {
   extern __shared__ __align__(16) unsigned char smem[];
   WalkSmem& sm = *reinterpret_cast<WalkSmem*>(smem);
   walk_stream(make_stream(pf, w1, w2, h12, nbuf, n_buffers, mc), ca_in, ct_in, words, ca_out,
-              ct_out, now, counts, sm);
+              ct_out, *now, counts, sm);
 }
 
 // K3: stream blockIdx.x of S, each with bufs_per_stream buffers.
@@ -684,7 +687,7 @@ extern "C" int resolve_words(const void* pf, const void* w1, const void* w2,
                              const void* h12, const void* nbuf,
                              const void* ca_in, const void* ct_in, void* words,
                              void* ca_out, void* ct_out, void* counts, int n_buffers,
-                             int mc, int now, void* stream) {
+                             int mc, const void* now, void* stream) {
   const cudaError_t attr = allow_smem(resolve_words_kernel);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   resolve_words_kernel<<<1, kThreads, sizeof(WalkSmem), static_cast<cudaStream_t>(stream)>>>(
@@ -693,7 +696,7 @@ extern "C" int resolve_words(const void* pf, const void* w1, const void* w2,
       static_cast<const int*>(nbuf), static_cast<const int*>(ca_in),
       static_cast<const int*>(ct_in), static_cast<int*>(words),
       static_cast<int*>(ca_out), static_cast<int*>(ct_out), static_cast<int*>(counts),
-      n_buffers, mc, now);
+      n_buffers, mc, static_cast<const int*>(now));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,9 @@ run_source_device, live buffers): the demodulator AND the sequential
 resolver run on the card.  Groups of
 `dispatch_groups` x `batch_buffers` buffers are uploaded, and each group
 runs ops.resolve.demod_resolve_group with the ICAO cache chained on the
-device from one group to the next.  At most `dispatch_ahead` groups are in
+device from one group to the next; on CUDA a dispatch shape's second and
+later groups replay that dispatch as one CUDA graph
+(models/dispatch_graph.py).  At most `dispatch_ahead` groups are in
 flight: the oldest is fetched once one more is issued, or as soon as no
 next input waits (a live source between buffers, a reader thread behind),
 so a live buffer's results never wait on the next buffer.  A group's small
@@ -66,6 +68,7 @@ from .decoder import (
     ModesMessage,
     messages_from_device_arrays,
 )
+from .dispatch_graph import DispatchGraphs, dispatch_key
 from .resolver import BlockCandidates, DebugContext, resolve_block
 from .shapes import Shapes, peaks
 from .state import cache_from_device, cache_to_device, state_from_numpy, state_to_numpy
@@ -213,6 +216,9 @@ class DemodPipeline:
         # working shapes (models/shapes.py), on the INSTANCE so a shared
         # PipelineConfig is not mutated
         self.shapes = Shapes(self.cfg.max_candidates)
+        # the device path's CUDA graphs, one a dispatch shape
+        # (models/dispatch_graph.py); on the CPU every dispatch runs eagerly
+        self._graphs = DispatchGraphs() if self.device.type == "cuda" else None
         self.stats = DecoderStats()
         self.samples_in = 0      # new samples demodulated (throughput meter)
         self.cache = IcaoCache(clock=clock)
@@ -344,20 +350,30 @@ class DemodPipeline:
             """The cache state the next group dispatched starts from."""
             return pending[-1].state_after if pending else delivered
 
+        def dispatch(xg, cache_addr, cache_ts, now):
+            # packed (the raw path): good-CRC decodes only; unpacked
+            # (run_device): every attempted decode, as the hub needs
+            return demod_resolve_group(
+                xg, cache_addr, cache_ts, now, dcfg.fix_errors, dcfg.aggressive,
+                scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
+                max_candidates=shapes.mc, max_out=shapes.mo,
+                max_out_short=shapes.mos, max_out_long=shapes.mol,
+                packed=packed, crcok_only=packed, front=self._front,
+            )
+
         def issue(xg, state, gid, n_bufs, replay=False) -> _InFlight:
             """Dispatch one group from the cache `state`, and start its fetch."""
             with spans.span("pipeline.issue", gid, count=n_bufs):
                 if replay:
                     spans.mark("pipeline.replay", gid, shapes.key)
-                # packed (the raw path): good-CRC decodes only; unpacked
-                # (run_device): every attempted decode, as the hub needs
-                out = demod_resolve_group(
-                    xg, *state, self.cache.clock(), dcfg.fix_errors, dcfg.aggressive,
-                    scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
-                    max_candidates=shapes.mc, max_out=shapes.mo,
-                    max_out_short=shapes.mos, max_out_long=shapes.mol,
-                    packed=packed, crcok_only=packed, front=self._front,
-                )
+                now = self.cache.clock()
+                if self._graphs is None:
+                    out = dispatch(xg, *state, now)
+                else:
+                    key = dispatch_key(xg, shapes.key, packed=packed, crcok_only=packed,
+                                       front=self._front, fix_errors=dcfg.fix_errors,
+                                       aggressive=dcfg.aggressive)
+                    out = self._graphs.run(key, dispatch, xg, *state, now, gid)
                 # the fetch starts now: it runs as soon as the group finishes,
                 # while the next groups compute; the cache stays on the device
                 return _InFlight(xg, state, _Fetch(out[:-2]), tuple(out[-2:]), shapes.key,

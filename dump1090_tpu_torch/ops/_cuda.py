@@ -10,8 +10,10 @@ by a hash of the sources and flags; a stale or missing library is rebuilt.
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, does not synchronise, and returns
 cudaGetLastError(); `check` raises on a nonzero code.  `launches` counts
-every kernel launch a wrapper makes, so a run can show that the main path
-went through the kernels.
+every kernel launch a wrapper makes (`count`), so a run can show that the
+main path went through the kernels.  A thread inside `tally()` counts into
+its own tally instead: a CUDA graph's capture records its launches there,
+and each replay adds them (`add`), while other threads go on counting.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import contextlib
 import threading
 import time
 from pathlib import Path
@@ -38,6 +41,8 @@ launches = {"gather_windows": 0, "resolve_words": 0, "resolve_words_streams": 0,
             "candidate_passes": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_tally = threading.local()
 _lib: ctypes.CDLL | None = None
 # filled by the build that produced the loaded library (None: found cached)
 build_info: dict = {}
@@ -47,8 +52,8 @@ _SIGNATURES = {
     # (m, elem_bytes, pos, out, B, S, s_pad, lead, mc, stream)
     "gather_windows": [_vp, _i, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out, counts,
-    #  n_buffers, mc, now, stream)
-    "resolve_words": [_vp] * 11 + [_i, _i, _i, _vp],
+    #  n_buffers, mc, now (a one-element int32 device tensor), stream)
+    "resolve_words": [_vp] * 11 + [_i, _i, _vp, _vp],
     # (pf, w1, w2, h12, nbuf, ca_in, ct_in, words, ca_out, ct_out, counts,
     #  n_streams, bufs_per_stream, mc, now, stream)
     "resolve_words_streams": [_vp] * 11 + [_i, _i, _i, _i, _vp],
@@ -58,8 +63,39 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel `name`: into this thread's tally inside
+    `tally()`, else into `launches`."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        tally[name] += 1
+        return
+    with _count_lock:
+        launches[name] += 1
+
+
+def add(counts: dict) -> None:
+    """Add `counts` (kernel -> launches) to `launches`."""
+    with _count_lock:
+        for k, n in counts.items():
+            launches[k] += n
+
+
+@contextlib.contextmanager
+def tally():
+    """This thread's launches while the block runs go into the yielded
+    dict (every kernel, from 0) and not into `launches`."""
+    outer = getattr(_tally, "counts", None)
+    _tally.counts = counts = dict.fromkeys(launches, 0)
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
 
 
 def _nvcc() -> str:

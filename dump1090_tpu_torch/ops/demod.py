@@ -35,6 +35,7 @@ in native/, or models/resolver.py for the --debug dumps).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -141,6 +142,13 @@ def compact_positions(mask: torch.Tensor, max_candidates: int, scan_len: int) ->
 _FILL = -(2**30)  # the score of an empty slot: below every real score
 # popcount of every byte value (torch has no population count)
 _POPCOUNT = [bin(v).count("1") for v in range(256)]
+
+
+@functools.cache
+def _popcount_lut(device: torch.device) -> torch.Tensor:
+    """_POPCOUNT as int32 on `device`, built once: a dispatch that a CUDA
+    graph captures copies nothing from the host."""
+    return torch.tensor(_POPCOUNT, dtype=torch.int32, device=device)
 
 
 def compact_positions_from_bytes(byte: torch.Tensor, max_candidates: int,
@@ -297,8 +305,7 @@ def front_packed(m: torch.Tensor, scan_len: int, max_candidates: int, *,
     """(n int32 (B,), pos int32 (B, max_candidates)) of int32 magnitudes
     (B, S) through the byte-packed predicate."""
     byte = preamble_bytes(m, scan_len, algebra=algebra, mxu=mxu)
-    lut = torch.tensor(_POPCOUNT, dtype=torch.int32, device=m.device)
-    n = lut[byte.to(torch.int64)].sum(dim=1, dtype=torch.int32)
+    n = _popcount_lut(m.device)[byte.to(torch.int64)].sum(dim=1, dtype=torch.int32)
     return n, compact_positions_from_bytes(byte, max_candidates, scan_len)
 
 
@@ -520,7 +527,7 @@ def candidate_passes_window(w: torch.Tensor, pos: torch.Tensor):
             w.data_ptr(), w.element_size(), w.shape[1], pos.data_ptr(), msg.data_ptr(),
             errors.data_ptr(), gate.data_ptr(), n, _cuda.current_stream(index),
         )
-        _cuda.launches["candidate_passes"] += 1
+        _cuda.count("candidate_passes")
         _cuda.check(err, "candidate_passes")
     return msg[0], errors[0], gate[0], msg[1], errors[1], gate[1]
 

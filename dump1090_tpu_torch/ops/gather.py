@@ -75,7 +75,7 @@ def gather_row_windows(m: torch.Tensor, pos: torch.Tensor, *, lead: int,
         m.data_ptr(), m.element_size(), pos.data_ptr(), out.data_ptr(), b, s, s_pad, lead, mc,
         _cuda.current_stream(index),
     )
-    _cuda.launches["gather_windows"] += 1
+    _cuda.count("gather_windows")
     _cuda.check(err, "gather_windows")
     return out
 

@@ -487,18 +487,36 @@ def _walk_counts_tensor(walk_counts: bool, blocks: int, device):
     return torch.zeros((blocks, 2), dtype=torch.int32, device=device)
 
 
-def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int, *,
+def _now_tensor(now, device: torch.device) -> torch.Tensor:
+    """`now` as the one-element int32 tensor on `device` that K2 reads: the
+    tensor itself, or an int written to a new one (by a fill on the
+    device, never a copy from the host)."""
+    if isinstance(now, torch.Tensor):
+        if now.dtype != torch.int32 or now.numel() != 1 or now.device != device:
+            raise TypeError(f"now must be an int or a one-element int32 tensor on {device}, "
+                            f"got {now.dtype} {tuple(now.shape)} on {now.device}")
+        return now
+    return torch.full((1,), int(now), dtype=torch.int32, device=device)
+
+
+def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now, mc: int, *,
                   walk_counts: bool = False):
     """The sequential walk: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors.  Same contract as resolve_words_plain; the input
-    cache tensors are never written.  With walk_counts (CUDA only) it also
-    returns the kernel's int32 (1, 2) count of its batches and its cuts."""
+    cache tensors are never written.  `now` is an int, or a one-element
+    int32 tensor on pf's device, which the kernel reads when it runs (a
+    CUDA graph's input; the plain version takes its value).  With
+    walk_counts (CUDA only) it also returns the kernel's int32 (1, 2) count
+    of its batches and its cuts."""
     _check_resolve_inputs(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, mc)
     counts = _walk_counts_tensor(walk_counts, 1, pf.device)
     if pf.device.type == "cpu":
-        return resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now, mc)
+        if isinstance(now, torch.Tensor):
+            now = _now_tensor(now, pf.device).item()
+        return resolve_words_plain(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, int(now), mc)
     if pf.device.type != "cuda":
         raise ValueError(f"resolve_words runs on cuda or cpu, not {pf.device}")
+    now_t = _now_tensor(now, pf.device)
     words = torch.empty_like(pf)
     ca = torch.empty_like(cache_addr)
     ct = torch.empty_like(cache_ts)
@@ -509,9 +527,9 @@ def resolve_words(pf, w1, w2, h12, nbuf, cache_addr, cache_ts, now: int, mc: int
             nbuf.data_ptr(), cache_addr.data_ptr(), cache_ts.data_ptr(),
             words.data_ptr(), ca.data_ptr(), ct.data_ptr(),
             None if counts is None else counts.data_ptr(),
-            nbuf.shape[0], mc, int(now), _cuda.current_stream(pf.device),
+            nbuf.shape[0], mc, now_t.data_ptr(), _cuda.current_stream(pf.device),
         )
-    _cuda.launches["resolve_words"] += 1
+    _cuda.count("resolve_words")
     _cuda.check(err, "resolve_words")
     return (words, ca, ct) if counts is None else (words, ca, ct, counts)
 
@@ -565,7 +583,7 @@ def resolve_words_streams(pf, w1, w2, h12, nbuf, cache_addr, cache_ts,
             n_streams, nbuf.shape[0] // n_streams, mc, int(now),
             _cuda.current_stream(pf.device),
         )
-    _cuda.launches["resolve_words_streams"] += 1
+    _cuda.count("resolve_words_streams")
     _cuda.check(err, "resolve_words_streams")
     return (words, ca, ct) if counts is None else (words, ca, ct, counts)
 
@@ -780,7 +798,7 @@ def _emit(post, rows: int, words, msg1f, msg2f, pos_f, aux1, aux2):
     )
 
 
-def _group_back(m, n, pos, cache_addr, cache_ts, now: int, fix_errors: bool,
+def _group_back(m, n, pos, cache_addr, cache_ts, now, fix_errors: bool,
                 aggressive: bool, *, g_n: int, max_candidates: int, post,
                 marks=None):
     """_group_precompute + the single sequential walk over the group's
@@ -813,7 +831,7 @@ def demod_resolve_group(
     xg: torch.Tensor,
     cache_addr: torch.Tensor,
     cache_ts: torch.Tensor,
-    now: int,
+    now: int | torch.Tensor,
     fix_errors: bool,
     aggressive: bool,
     *,
@@ -853,10 +871,11 @@ def demod_resolve_group(
     max_candidates, count-count_long > mos or count_long > mol, count >
     max_out), never silently truncated.
 
-    `front` picks the preamble-scan formulation (None: the
-    DUMP1090_TPU_FRONT default, ops.demod.front_variant).  `marks`, when a
-    list, collects (stage, CUDA event) pairs for a per-stage timing split
-    (CUDA only)."""
+    `now` is the clock in seconds, an int or a one-element int32 tensor on
+    xg's device (resolve_words).  `front` picks the preamble-scan
+    formulation (None: the DUMP1090_TPU_FRONT default,
+    ops.demod.front_variant).  `marks`, when a list, collects (stage, CUDA
+    event) pairs for a per-stage timing split (CUDA only)."""
     _check_entry(xg, scan_len, "(G, NB, nbytes)")
     if packed and max_out_short + max_out_long > PACKED_RANK_LIMIT:
         raise ValueError(

@@ -7,9 +7,9 @@ kernel: its name, the sequence number of the dispatch group it belongs to
 the thread, its start and end on time.perf_counter_ns(), one count (the
 buffers of a group, the messages of a batch), whether a torch.profiler
 was recording at its start or its end, and, for the zero-length marks of
-a replay or a shape change, the shapes (candidate slots a buffer, short,
-long and message rows a batch).  Spans of one thread nest or follow each
-other; a span ends before the span that encloses it.
+a replay, a shape change or a graph capture, the shapes (candidate slots
+a buffer, short, long and message rows a batch).  Spans of one thread
+nest or follow each other; a span ends before the span that encloses it.
 
 Spans go into a bounded ring of CAPACITY, about 17 MB when full (some
 eight minutes of a live receiver); once it is full the oldest are dropped
@@ -41,6 +41,10 @@ CAPACITY = 65536
 # the mark of a group fetched because no next input was ready
 # (models/pipeline.py), just before its fetch wait
 FETCH_EARLY = "pipeline.fetch.early"
+# the marks of a dispatch that replays its shape's CUDA graph, and of one
+# that captures it first (models/dispatch_graph.py), inside its issue span
+GRAPH_REPLAY = "pipeline.graph.replay"
+GRAPH_CAPTURE = "pipeline.graph.capture"
 
 
 class Span(NamedTuple):

@@ -554,3 +554,192 @@ def test_passes_kernel_once_a_dispatch_with_no_walk_loop(cuda, path, tmp_path, m
     k4 = _cuda.launches["candidate_passes"]
     assert k4 == _cuda.launches["gather_windows"] == _cuda.launches["resolve_words"] > 0
     assert not walks and msgs
+
+
+# ---- the dispatch's CUDA graph (models/dispatch_graph.py) --------------------------
+
+
+def _air(n: int, seed: int) -> tuple[bytes, np.ndarray]:
+    """A capture of n blocks of dense air, and its n framed buffers (uint8
+    (n, 262,620)) as the ingest takes them."""
+    from dump1090_tpu_torch.io.sources import iq_buffers
+    from dump1090_tpu_torch.utils.synth import planted_capture
+
+    data, _ = planted_capture(n, 150, seed=seed, noise_sigma=3.0)
+    return data, np.stack(list(iq_buffers(io.BytesIO(data))))
+
+
+def _dispatch(packed, front, shapes):
+    from dump1090_tpu_torch.constants import BUF_SAMPLES, FULL_LEN_SAMPLES
+    from dump1090_tpu_torch.ops.resolve import demod_resolve_group
+
+    mc, mos, mol, mo = shapes
+
+    def fn(xg, cache_addr, cache_ts, now):
+        return demod_resolve_group(
+            xg, cache_addr, cache_ts, now, True, False, scan_len=BUF_SAMPLES - FULL_LEN_SAMPLES,
+            max_candidates=mc, max_out=mo, max_out_short=mos, max_out_long=mol,
+            packed=packed, crcok_only=packed, front=front)
+
+    return fn
+
+
+def _chained(run, groups, nows, state):
+    """Dispatch the groups in turn from `state`, the cache chained through
+    them, each one's outputs copied right behind it on the stream (as the
+    pipeline's fetch is) and nothing synchronised until the end; returns the
+    copies."""
+    outs = []
+    for xg, now in zip(groups, nows):
+        got = run(xg, *state, now)
+        outs.append([o.clone() for o in got])
+        state = got[-2:]
+    torch.cuda.synchronize()
+    return outs
+
+
+GRAPH_CASES = ([((1, 1), f) for f in ("mask", "packed", "packed-mxu", "packed-plain",
+                                      "packed-plain-mxu")]
+               + [((8, 64), "mask"), ((8, 64), "packed")])
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("geometry, front", GRAPH_CASES)
+def test_graph_replays_equal_eager_dispatches(cuda, geometry, front, packed):
+    """Five chained groups of distinct dense air through the graph cache
+    (eager, the capture, three replays), enqueued back to back as at depth
+    3, against the same groups dispatched eagerly: every output bit-equal
+    (n, counts, rows, meta, stats, both cache tensors), with `now` stepping
+    across the cache's 60 s TTL between replays, and one launch of each
+    hand-written kernel counted a dispatch."""
+    from dump1090_tpu_torch.models.dispatch_graph import DispatchGraphs, dispatch_key
+    from dump1090_tpu_torch.models.shapes import Shapes
+    from dump1090_tpu_torch.ops import _cuda
+
+    g_n, nb = geometry
+    shapes = Shapes(256)
+    shapes.size(nb)
+    _, pool = _air(32 if g_n * nb > 1 else 5, seed=61)
+    rng = np.random.default_rng(62)
+    picks = [[k] for k in range(5)] if g_n * nb == 1 else [
+        rng.integers(0, len(pool), g_n * nb) for _ in range(5)]
+    groups = [torch.from_numpy(pool[k].reshape(g_n, nb, -1)).to(cuda) for k in picks]
+    nows = [NOW, NOW + 1, NOW + 59, NOW + 61, NOW + 125]
+    fn = _dispatch(packed, front, shapes.key)
+    key = dispatch_key(groups[0], shapes.key, packed=packed, crcok_only=packed, front=front,
+                       fix_errors=True, aggressive=False)
+    graphs = DispatchGraphs()
+    state = (torch.zeros(1024, dtype=torch.int32, device=cuda),
+             torch.zeros(1024, dtype=torch.int32, device=cuda))
+    _cuda.reset_launches()
+    got = _chained(lambda *a: graphs.run(key, fn, *a), groups, nows, state)
+    counted = dict(_cuda.launches)
+    want = _chained(fn, groups, nows, state)
+    assert key in graphs._graphs
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert len(g) == len(w)
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, front, packed)
+    for name in ("gather_windows", "candidate_passes", "resolve_words"):
+        assert counted[name] == 5, counted
+    # the air was dense and the cache worked: emitted rows, cache entries
+    assert int(want[-1][1].sum()) > 0 and int((want[-1][-2] != 0).sum()) > 0
+
+
+def test_graph_capture_beside_a_reader_thread_uploading(cuda):
+    """A capture (and its replays) while another thread uploads pageable
+    buffers to the card without pause, on the dispatch stream: the capture
+    succeeds and the replays equal the eager dispatches."""
+    import threading
+
+    from dump1090_tpu_torch.models.dispatch_graph import DispatchGraphs, dispatch_key
+    from dump1090_tpu_torch.models.shapes import Shapes
+
+    shapes = Shapes(256)
+    shapes.size(1)
+    _, pool = _air(6, seed=63)
+    groups = [torch.from_numpy(pool[k][None, None]).to(cuda) for k in range(6)]
+    fn = _dispatch(False, "mask", shapes.key)
+    key = dispatch_key(groups[0], shapes.key, packed=False, crcok_only=False, front="mask",
+                       fix_errors=True, aggressive=False)
+    stop, uploads, errors = threading.Event(), [0], []
+    stream = torch.cuda.current_stream(cuda)
+
+    def reader():
+        try:
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    torch.from_numpy(pool[uploads[0] % len(pool)]).to(cuda)
+                    uploads[0] += 1
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        graphs = DispatchGraphs()
+        state = (torch.zeros(1024, dtype=torch.int32, device=cuda),) * 2
+        got = _chained(lambda *a: graphs.run(key, fn, *a), groups, [NOW] * 6, state)
+    finally:
+        stop.set()
+        t.join()
+    assert not errors and uploads[0] > 0 and key in graphs._graphs
+    want = _chained(fn, groups, [NOW] * 6, state)
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+@pytest.mark.parametrize("path", ["stream_raw_device", "run_device", "run_source_device"])
+def test_pipeline_graphs_through_growth_equal_cpu(cuda, path):
+    """The live geometry (one buffer a group) at depth 3 from mc 16: the
+    first groups overflow, the shapes grow (Shapes.fit) and the groups
+    behind are replayed at the new shape, whose graph is then captured and
+    replayed; run_source_device takes its buffers from a reader thread.
+    Output, counters, shapes and cache equal the CPU's eager run, and most
+    dispatches replayed a graph."""
+    from dump1090_tpu_torch.models.pipeline import DemodPipeline, PipelineConfig
+    from dump1090_tpu_torch.utils import spans
+
+    data, bufs = _air(12, seed=64)
+    cfg = PipelineConfig(max_candidates=16, dispatch_ahead=3)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        spans.RECORDER.clear()
+        p = DemodPipeline(cfg, clock=lambda: NOW, device=dev)
+        if path == "stream_raw_device":
+            got = b"".join(p.stream_raw_device(io.BytesIO(data)))
+        else:
+            msgs = []
+            if path == "run_device":
+                p.run_device(io.BytesIO(data), msgs.append)
+            else:
+                p.run_source_device(iter(list(bufs)), msgs.append)
+            got = [vars(m) for m in msgs]
+        names = [s.name for s in spans.RECORDER.spans()]
+        outs[dev] = (got, p.stats, p.shapes.key, p.cache.addr.tolist(), p.cache.ts.tolist())
+        if dev == "cuda":
+            assert names.count(spans.GRAPH_CAPTURE) >= 1 and "pipeline.reshape" in names
+            assert names.count(spans.GRAPH_REPLAY) >= 6, names
+    assert outs["cuda"] == outs["cpu"] and outs["cuda"][0]
+
+
+def test_resolve_kernel_reads_now_from_the_device(cuda):
+    """K2 with `now` a one-element device tensor equals the plain walk at
+    clocks that carry the stream's fresh and expired cache entries (aged 5
+    and 61 s at NOW) across the 60 s TTL; the tensor is read when the
+    kernel runs, so a later fill of it moves the next launch's clock."""
+    from dump1090_tpu_torch.ops import resolve as tr
+    from dump1090_tpu_torch.utils.synth import random_word_stream
+
+    arrays = random_word_stream(5, 8, 256, NOW)
+    pf, w1, w2, nbuf, ca, ct = (torch.from_numpy(a).to(cuda) for a in arrays)
+    h12 = tr._hash_words(w1, w2)
+    now_t = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for offset in (-61, 0, 4, 5, 6, 55, 56, 60, 61, 62):
+        now_t.fill_(NOW + offset)
+        got = tr.resolve_words(pf, w1, w2, h12, nbuf, ca, ct, now_t, 256)
+        by_int = tr.resolve_words(pf, w1, w2, h12, nbuf, ca, ct, NOW + offset, 256)
+        want = tr.resolve_words_plain(pf, w1, w2, h12, nbuf, ca, ct, NOW + offset, 256)
+        torch.cuda.synchronize()
+        for g, i, w in zip(got, by_int, want):
+            assert torch.equal(g, w) and torch.equal(i, w), offset
